@@ -1,0 +1,417 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (gpumounter_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases, each printing one JSON line on stdout:
+  1. environment — card name and power limit (nvidia-smi), device count,
+     the card's published rates (perf.GPU_PEAKS; an unknown card fails
+     here), and the kernel build (nvcc from the checkout's sources);
+  2. parity — every kernel against its plain PyTorch version on the card:
+     f32 at b1 h2 d64 (both forward contracts, ring offsets, a fully masked
+     block merged away, a float64 oracle, T=768 and T=1536 through the
+     trainable attention, whose T=1536 forward takes the K-blocked
+     contract), then bf16 at the shapes the flagship and long-context
+     steps give the kernels (the forward and the backward pair at each),
+     with each kernel's time, its bound, the plain
+     version's time and a PyTorch library call's as a yardstick;
+  3. probe — run_probe on the card (collectives are degenerate on 1 GPU);
+  4. flagship — the full-width train step (mxu_config, b8 t1024 bf16,
+     flash attention): loss finite and decreasing, step time, MFU, and the
+     launch counts of the kernels it ran;
+  5. long_context — the same model at seq 4096 b2, which runs the forward's
+     K-blocked contract and the backward pair at T=4096;
+  6. the kernels line, the card line, and the device line.
+
+Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
+versions); bf16 1e-2 on the normalised output and on gradients' relative
+Frobenius error, 1e-3 on m and lse. Exits non-zero, without the device
+line, when there is no GPU, when the package is missing, or when any phase
+failed.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import torch
+
+PALLAS = "gpumounter_tpu/jaxcheck/pallas_attention.py"
+CSRC = "gpumounter_tpu_torch/torchcheck/csrc"
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return proc.stdout.strip() or f"nvidia-smi rc={proc.returncode}"
+
+
+def cuda_ms(fn, warmup: int = 2, reps: int = 10) -> float:
+    """Mean device time of ``fn`` in ms, from CUDA events around ``reps``
+    launches after ``warmup``."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, rates) -> dict:
+    """The least time the card could take for ``flops`` operations and
+    ``nbytes`` moved, at ``rates`` = (peak FLOP/s, memory bytes/s), and
+    which of the two bounds it."""
+    t_ops, t_bytes = flops / rates[0], nbytes / rates[1]
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def max_abs(a, b) -> float:
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def rel_fro(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+class Checks:
+    """Collects named pass/fail results of one phase."""
+
+    def __init__(self):
+        self.results: dict[str, dict] = {}
+
+    def add(self, name: str, err: float, tol: float) -> None:
+        self.results[name] = {"err": err, "tol": tol,
+                              "ok": bool(math.isfinite(err) and err <= tol)}
+
+    @property
+    def ok(self) -> bool:
+        return all(r["ok"] for r in self.results.values())
+
+
+def _rand(shape, dtype, gen):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _normalized(pv, l):
+    return pv / l.transpose(1, 2).clamp_min(1e-30)
+
+
+def parity_small(fa, kernels, ra) -> dict:
+    """f32 at b1 h2 d64: contracts, offsets, masking, oracle, T=768/1536;
+    and the same T=768/1536 trainable attention in bf16."""
+    checks = Checks()
+    gen = torch.Generator("cuda").manual_seed(0)
+    f32 = torch.float32
+    q, k, v = (_rand((2, 256, 64), f32, gen) for _ in range(3))
+    scale = 64 ** -0.5
+    for skip in ((0, 0), (128, 128)):
+        for offsets in ((0, 0), (1024, 1024), (0, 4096)):
+            got = kernels.flash_fwd(q, k, v, *offsets, scale, *skip)
+            want = fa._flash_fwd_plain(q, k, v, *offsets, scale, *skip)
+            tag = f"fwd_f32_skip{skip[0]}_off{offsets[0]}_{offsets[1]}"
+            checks.add(tag + "_out", max_abs(_normalized(got[0], got[2]),
+                                             _normalized(want[0], want[2])),
+                       1e-4)
+            checks.add(tag + "_m", max_abs(got[1], want[1]), 1e-4)
+            checks.add(tag + "_l", rel_fro(got[2], want[2].clamp_min(1e-30))
+                       if float(want[2].abs().max()) > 0
+                       else max_abs(got[2], want[2]), 1e-4)
+    # a block wholly in the future merges away (whole-K contract)
+    pv0, m0, l0 = kernels.flash_fwd(q, k, v, 0, 0, scale)
+    pv1, m1, l1 = kernels.flash_fwd(q, k, v, 0, 4096, scale)
+    to_bthd = (lambda x: x.reshape(1, 2, 256, 64).transpose(1, 2))
+    acc, _, l = ra.merge_block(to_bthd(pv0), m0.reshape(1, 2, 256),
+                               l0.reshape(1, 2, 256), to_bthd(pv1),
+                               m1.reshape(1, 2, 256), l1.reshape(1, 2, 256))
+    checks.add("fully_masked_merge_acc", max_abs(acc, to_bthd(pv0)), 1e-6)
+    checks.add("fully_masked_merge_l", max_abs(l, l0.reshape(1, 2, 256)),
+               1e-6)
+    # float64 oracle
+    s = (q.double() @ k.double().transpose(1, 2)) * scale
+    s = s.masked_fill(~torch.ones(256, 256, dtype=torch.bool,
+                                  device="cuda").tril(), -math.inf)
+    oracle = torch.softmax(s, dim=-1) @ v.double()
+    checks.add("fwd_f32_vs_float64_oracle",
+               max_abs(_normalized(pv0, l0).double(), oracle), 1e-4)
+    # the trainable attention (kernel fwd + bwd) against the same Function
+    # on CPU copies, i.e. the plain versions
+    attn = fa.make_flash_attention()
+    for dtype, tol in ((f32, 1e-4), (torch.bfloat16, 1e-2)):
+        for t in (768, 1536):
+            q4, k4, v4, w = (_rand((1, t, 2, 64), dtype, gen)
+                             for _ in range(4))
+            results = []
+            for dev in ("cuda", "cpu"):
+                leaves = [x.detach().to(dev).requires_grad_(True)
+                          for x in (q4, k4, v4)]
+                out = attn(*leaves)
+                (out.float() * w.to(dev).float()).sum().backward()
+                results.append((out, *(x.grad for x in leaves)))
+            name = f"attn_{str(dtype).split('.')[-1]}_t{t}"
+            checks.add(name + "_out", max_abs(results[0][0].cpu(),
+                                              results[1][0]), tol)
+            for g, gname in zip(range(1, 4), ("dq", "dk", "dv")):
+                checks.add(f"{name}_{gname}",
+                           rel_fro(results[0][g].cpu(), results[1][g]), tol)
+    return {"checks": checks.results, "ok": checks.ok}
+
+
+def _library_bwd_ms(q4, k4, v4, do4):
+    """One backward of F.scaled_dot_product_attention (the library's
+    fused dq+dk+dv) — a yardstick the port never calls."""
+    import torch.nn.functional as F
+    leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    return cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do4, retain_graph=True), reps=5)
+
+
+def check_shape(fa, kernels, checks, rows, path, b, t, skip, gen,
+                rates) -> float:
+    """bf16 at the shape one main path gives the kernels (B=b, H32, T=t,
+    D128 -> [b*32, t, 128]): the forward (whole-K when ``skip`` is (0, 0),
+    else K-blocked over ``skip``) and the backward pair, each held against
+    its plain version and timed beside its bound, its plain version and a
+    library call. The backward's lse and drow come from the plain forward,
+    as the train step makes them from the forward's. Adds rows keyed by
+    kernel and ``path``; returns SDPA's forward+backward ms at this shape."""
+    import torch.nn.functional as F
+    h, d, es = 32, 128, 2
+    bh, scale = b * h, d ** -0.5
+    fwd = "fwd_kblocked" if skip[0] else "fwd_whole_k"
+    q, k, v, do = (_rand((bh, t, d), torch.bfloat16, gen) for _ in range(4))
+    q4, k4, v4, do4 = (x.view(b, h, t, d) for x in (q, k, v, do))
+    pairs = bh * t * (t + 1) / 2          # causal (q, k) pairs, offsets 0
+    io = bh * t * d * es                  # one [BH, T, D] bf16 tensor
+    acc = bh * t * d * 4                  # one [BH, T, D] f32 tensor
+    stats = 2 * bh * t * 4                # two [BH, 1, T] f32 rows
+    shape = {"path": path, "shape": [bh, t, d], "dtype": "bfloat16"}
+
+    got = kernels.flash_fwd(q, k, v, 0, 0, scale, *skip)
+    want = fa._flash_fwd_plain(q, k, v, 0, 0, scale, *skip)
+    out = _normalized(want[0], want[2])
+    lse = want[1] + torch.log(want[2])
+    out_err = max_abs(_normalized(got[0], got[2]), out)
+    checks.add(f"{fwd}_out", out_err, 1e-2)
+    checks.add(f"{fwd}_m", max_abs(got[1], want[1]), 1e-3)
+    checks.add(f"{fwd}_lse", max_abs(got[1] + torch.log(got[2]), lse), 1e-3)
+    drow = (do.float() * out).sum(-1)[:, None]
+    del got, want, out
+    rows[fwd] = {
+        **shape, "max_abs_err": out_err,
+        "ms": cuda_ms(lambda: kernels.flash_fwd(q, k, v, 0, 0, scale,
+                                                *skip)),
+        "plain_ms": cuda_ms(lambda: fa._flash_fwd_plain(
+            q, k, v, 0, 0, scale, *skip), reps=3),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True)),
+        **bound(4 * d * pairs, 3 * io + acc + stats, rates)}
+
+    args = (q, k, v, do, lse, drow, scale)
+    dq, dq_ref = kernels.flash_bwd_dq(*args), fa._flash_dq_plain(*args)
+    (dk, dv), (dk_ref, dv_ref) = (kernels.flash_bwd_dkdv(*args),
+                                  fa._flash_dkdv_plain(*args))
+    for name, a, r in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                       ("dv", dv, dv_ref)):
+        checks.add(f"bwd_{name}_{path}_rel_fro", rel_fro(a, r), 1e-2)
+    lib_bwd = _library_bwd_ms(q4, k4, v4, do4)
+    rows[f"bwd_dq_{path}"] = {
+        **shape, "max_abs_err": max_abs(dq, dq_ref),
+        "rel_fro_err": rel_fro(dq, dq_ref),
+        "ms": cuda_ms(lambda: kernels.flash_bwd_dq(*args)),
+        "plain_ms": cuda_ms(lambda: fa._flash_dq_plain(*args), reps=3),
+        "library_ms": lib_bwd,
+        **bound(6 * d * pairs, 4 * io + stats + acc, rates)}
+    rows[f"bwd_dkdv_{path}"] = {
+        **shape, "max_abs_err": max(max_abs(dk, dk_ref), max_abs(dv, dv_ref)),
+        "rel_fro_err": max(rel_fro(dk, dk_ref), rel_fro(dv, dv_ref)),
+        "ms": cuda_ms(lambda: kernels.flash_bwd_dkdv(*args)),
+        "plain_ms": cuda_ms(lambda: fa._flash_dkdv_plain(*args), reps=3),
+        "library_ms": lib_bwd,
+        **bound(8 * d * pairs, 4 * io + stats + 2 * acc, rates)}
+    del dq, dq_ref, dk, dk_ref, dv, dv_ref
+
+    def fwd_bwd():
+        leaves = [x.detach().requires_grad_(True) for x in (q4, k4, v4)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(o, leaves, do4)
+
+    library_fwd_bwd_ms = cuda_ms(fwd_bwd, reps=5)
+    del q, k, v, do, q4, k4, v4, do4, lse, drow, args
+    torch.cuda.empty_cache()
+    return library_fwd_bwd_ms
+
+
+def parity_main_path(fa, kernels, rates) -> tuple[dict, dict]:
+    """bf16 at the main paths' shapes: the flagship step's (B8 T1024, the
+    whole-K forward) and the long-context step's (B2 T4096, the K-blocked
+    forward), with the backward pair at both. Returns (phase report,
+    per-kernel numbers for the kernels line)."""
+    checks = Checks()
+    rows: dict[str, dict] = {}
+    gen = torch.Generator("cuda").manual_seed(1)
+    t = 4096
+    skip = (fa._fit_tile(fa.FWD_TILE_Q, t), fa._fit_tile(fa.FWD_K_BLOCK, t))
+    library = {
+        "flagship": check_shape(fa, kernels, checks, rows, "flagship", 8,
+                                1024, (0, 0), gen, rates),
+        "long_context": check_shape(fa, kernels, checks, rows,
+                                    "long_context", 2, t, skip, gen, rates)}
+    return ({"checks": checks.results, "library_fwd_bwd_ms": library,
+             "kernels": rows, "ok": checks.ok}, rows)
+
+
+def run_path(kernels, fn):
+    """Run one main-path phase with every launch count at 0 just before,
+    and return (its report, the counts just after)."""
+    kernels.reset_launch_counts()
+    report = fn()
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    return report, counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gpumounter_tpu_torch.torchcheck import flash_attention as fa
+    from gpumounter_tpu_torch.torchcheck import kernels
+    from gpumounter_tpu_torch.torchcheck import perf, probe
+    from gpumounter_tpu_torch.torchcheck import ring_attention as ra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = nvidia_smi("name,power.limit")
+    kind = torch.cuda.get_device_name(0)
+    rates = (perf.chip_peak_tflops(kind), perf.chip_hbm_tb_per_s(kind))
+    failed: list[str] = []
+    kernel_rows: dict[str, dict] = {}
+    launches: dict[str, dict] = {}
+
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        try:
+            report = fn()
+        except Exception:
+            traceback.print_exc()
+            report = {"ok": False, "error": traceback.format_exc()[-2000:]}
+        report["seconds"] = time.perf_counter() - t0
+        if not report.get("ok"):
+            failed.append(name)
+        emit(name, **report)
+
+    def environment():
+        info = kernels.build()
+        ptxas = {src: [ln.split(":", 1)[-1].strip()
+                       for ln in log.splitlines()
+                       if "entry function" in ln or "Used" in ln
+                       or "spill" in ln]
+                 for src, log in info["ptxas"].items()}
+        # the kernels' bounds need the card's published rates
+        return {"nvidia_smi": card, "device": kind,
+                "device_count": torch.cuda.device_count(),
+                "torch": torch.__version__, "cuda": torch.version.cuda,
+                "peak_bf16_tflops": rates[0], "hbm_tb_per_s": rates[1],
+                "kernel_build_s": info["seconds"], "built": info["built"],
+                "ptxas": ptxas, "ok": None not in rates}
+
+    def parity():
+        small = parity_small(fa, kernels, ra)
+        main_path, rows = parity_main_path(
+            fa, kernels, tuple(r * 1e12 for r in rates))
+        kernel_rows.update(rows)
+        return {"small": small, "main_path": main_path,
+                "ok": small["ok"] and main_path["ok"]}
+
+    def probe_phase():
+        report = probe.run_probe(device="cuda")
+        return {"report": report, "ok": report["ok"]}
+
+    def flagship():
+        report, counts = run_path(kernels, lambda: perf.measure_train_perf(
+            perf.mxu_config(), batch=8, t_len=1024, attn_impl="flash"))
+        launches["flagship"] = counts
+        ran = all(counts[n] > 0 for n in ("flash_fwd_whole_k", "flash_bwd_dq",
+                                          "flash_bwd_dkdv"))
+        return {"nvidia_smi": card,
+                "clocks_power": nvidia_smi(
+                    "clocks.sm,power.draw,power.limit,temperature.gpu"),
+                "report": report, "launches": counts, "kernels_ran": ran,
+                "ok": bool(report["ok"] and ran)}
+
+    def long_context():
+        report, counts = run_path(kernels, lambda: perf.measure_long_context())
+        launches["long_context"] = counts
+        ran = all(counts[n] > 0 for n in ("flash_fwd_kblocked",
+                                          "flash_bwd_dq", "flash_bwd_dkdv"))
+        return {"report": report, "launches": counts, "kernels_ran": ran,
+                "ok": bool(report["ok"] and ran)}
+
+    phase("environment", environment)
+    if failed:             # nothing can run without the kernels and rates
+        return 1
+    phase("parity", parity)
+    phase("probe", probe_phase)
+    phase("flagship", flagship)
+    torch.cuda.empty_cache()
+    phase("long_context", long_context)
+
+    entries = (
+        ("flash_fwd (whole-K contract)", "flash_fwd.cu", 60, "fwd_whole_k",
+         "flagship", "flash_fwd_whole_k"),
+        ("flash_fwd (K-blocked contract)", "flash_fwd.cu", 273,
+         "fwd_kblocked", "long_context", "flash_fwd_kblocked"),
+        ("flash_bwd_dq (flagship)", "flash_bwd.cu", 332, "bwd_dq_flagship",
+         "flagship", "flash_bwd_dq"),
+        ("flash_bwd_dkdv (flagship)", "flash_bwd.cu", 368,
+         "bwd_dkdv_flagship", "flagship", "flash_bwd_dkdv"),
+        ("flash_bwd_dq (long context)", "flash_bwd.cu", 332,
+         "bwd_dq_long_context", "long_context", "flash_bwd_dq"),
+        ("flash_bwd_dkdv (long context)", "flash_bwd.cu", 368,
+         "bwd_dkdv_long_context", "long_context", "flash_bwd_dkdv"),
+    )
+    line = []
+    for name, src, pallas_line, row_key, path, counter in entries:
+        row = kernel_rows.get(row_key, {})
+        count = launches.get(path, {}).get(counter, 0)
+        if count == 0 and "kernels" not in failed:
+            failed.append("kernels")
+        line.append({
+            "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
+            "replaces": f"{PALLAS}:{pallas_line}", "launches": count,
+            "path": path,
+            **{key: row.get(key) for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape", "dtype")}})
+    print(json.dumps({"kernels": line}), flush=True)
+    print(nvidia_smi("name,power.limit"), flush=True)
+    if failed:
+        print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -45,6 +45,7 @@ def pytest_configure(config):
     """Build the native .so components once per session if missing, so the
     suite is runnable from a clean checkout (`make -C gpumounter_tpu/native`
     is what the worker Docker image runs)."""
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
     del config
     wanted = [os.path.join(_NATIVE_DIR, "build", n)
               for n in ("libtpuprobe.so", "libbpfgate.so")]

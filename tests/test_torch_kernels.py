@@ -1,0 +1,80 @@
+"""The Hopper kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device; this
+file imports no JAX, so it also runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_kernels.py -m gpu -q
+
+Tolerances: f32 1e-4 (the f32 kernels use CUDA-core FMAs in full f32, TF32
+off on the plain side); bf16 1e-2 on normalised outputs and on the relative
+Frobenius error of gradients, 1e-3 on m (p is rounded to bf16 at other
+points of the online recurrence than in the whole-K plain version)."""
+
+import pytest
+import torch
+
+from gpumounter_tpu_torch.torchcheck import flash_attention as tfa
+from gpumounter_tpu_torch.torchcheck import kernels
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_fro(got, want):
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 128)])
+@pytest.mark.parametrize("skip", [(0, 0), (128, 128)])
+def test_kernel_fwd_matches_plain(cuda, dtype, d, skip):
+    g = torch.Generator(cuda).manual_seed(0)
+    q, k, v = (torch.randn(4, 512, d, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    scale = d ** -0.5
+    for offsets in ((0, 0), (1024, 1024), (0, 4096)):
+        got = kernels.flash_fwd(q, k, v, *offsets, scale, *skip)
+        want = tfa._flash_fwd_plain(q, k, v, *offsets, scale, *skip)
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        assert float((got[1] - want[1]).abs().max()) <= 1e-3
+        norm_got = got[0] / got[2].transpose(1, 2).clamp_min(1e-30)
+        norm_want = want[0] / want[2].transpose(1, 2).clamp_min(1e-30)
+        assert float((norm_got - norm_want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 128)])
+def test_kernel_bwd_matches_plain(cuda, dtype, d):
+    g = torch.Generator(cuda).manual_seed(1)
+    q, k, v, do = (torch.randn(4, 768, d, generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    scale = d ** -0.5
+    pv, m, l = tfa._flash_fwd_plain(q, k, v, 0, 0, scale)
+    lse = m + torch.log(l)
+    drow = (do.float() * (pv / l.transpose(1, 2))).sum(-1)[:, None]
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    got = (kernels.flash_bwd_dq(q, k, v, do, lse, drow, scale),
+           *kernels.flash_bwd_dkdv(q, k, v, do, lse, drow, scale))
+    want = (tfa._flash_dq_plain(q, k, v, do, lse, drow, scale),
+            *tfa._flash_dkdv_plain(q, k, v, do, lse, drow, scale))
+    for a, b in zip(got, want):
+        assert _rel_fro(a, b) <= tol
+
+
+@pytest.mark.gpu
+def test_kernel_launch_counters(cuda):
+    q, k, v = (torch.randn(1, 256, 2, 64, device=cuda, requires_grad=True)
+               for _ in range(3))
+    kernels.reset_launch_counts()
+    tfa.make_flash_attention()(q, k, v).sum().backward()
+    assert kernels.LAUNCHES == {"flash_fwd_whole_k": 1,
+                                "flash_fwd_kblocked": 0,
+                                "flash_bwd_dq": 1, "flash_bwd_dkdv": 1}
