@@ -17,10 +17,13 @@ Phases, each printing one JSON line on stdout:
      version's time and a PyTorch library call's as a yardstick;
   3. probe — run_probe on the card (collectives are degenerate on 1 GPU);
   4. flagship — the full-width train step (mxu_config, b8 t1024 bf16,
-     flash attention): loss finite and decreasing, step time, MFU, and the
-     launch counts of the kernels it ran;
+     flash attention): loss finite and decreasing, step time, MFU, the
+     launch counts of the kernels its timed steps ran, and one more step
+     of the same state under torch.profiler (CUDA activity): the 10 device
+     kernels with the most self time and attention's share of the step;
   5. long_context — the same model at seq 4096 b2, which runs the forward's
-     K-blocked contract and the backward pair at T=4096;
+     K-blocked contract and the backward pair at T=4096, profiled the same
+     way;
   6. the kernels line, the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -112,10 +115,39 @@ def _normalized(pv, l):
     return pv / l.transpose(1, 2).clamp_min(1e-30)
 
 
+def _attention_f64(q4, k4, v4, w):
+    """Causal attention of [B, T, H, D] inputs in float64 on the CPU, with
+    autograd: (out, dq, dk, dv) of sum(out * w), the oracle of the f32
+    trainable attention."""
+    leaves = [x.detach().cpu().double().requires_grad_(True)
+              for x in (q4, k4, v4)]
+    q, k, v = (x.transpose(1, 2) for x in leaves)
+    t = q.shape[2]
+    s = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -math.inf)
+    out = (torch.softmax(s, dim=-1) @ v).transpose(1, 2)
+    (out * w.cpu().double()).sum().backward()
+    return (out, *(x.grad for x in leaves))
+
+
+def _cpu_math() -> dict:
+    """The CPU settings that decide the plain versions' f32 rounding."""
+    mkldnn = torch.backends.mkldnn
+    return {"threads": torch.get_num_threads(),
+            "capability": torch.backends.cpu.get_cpu_capability(),
+            "float32_matmul_precision": torch.get_float32_matmul_precision(),
+            "mkldnn_enabled": mkldnn.enabled,
+            "mkldnn_matmul_fp32_precision": getattr(
+                getattr(mkldnn, "matmul", None), "fp32_precision", None)}
+
+
 def parity_small(fa, kernels, ra) -> dict:
     """f32 at b1 h2 d64: contracts, offsets, masking, oracle, T=768/1536;
-    and the same T=768/1536 trainable attention in bf16."""
+    and the same T=768/1536 trainable attention in bf16. The f32
+    trainable attention is also held against a float64 oracle, the card's
+    side gated and the CPU side reported, so that a drift shows its side."""
     checks = Checks()
+    cpu_vs_f64: dict[str, list[float]] = {}
     gen = torch.Generator("cuda").manual_seed(0)
     f32 = torch.float32
     q, k, v = (_rand((2, 256, 64), f32, gen) for _ in range(3))
@@ -169,7 +201,19 @@ def parity_small(fa, kernels, ra) -> dict:
             for g, gname in zip(range(1, 4), ("dq", "dk", "dv")):
                 checks.add(f"{name}_{gname}",
                            rel_fro(results[0][g].cpu(), results[1][g]), tol)
-    return {"checks": checks.results, "ok": checks.ok}
+            if dtype != f32:
+                continue
+            oracle = _attention_f64(q4, k4, v4, w)
+            cuda_side, cpu_side = ([max_abs(r[0].cpu(), oracle[0])]
+                                   + [rel_fro(r[g].cpu(), oracle[g])
+                                      for g in range(1, 4)]
+                                   for r in results)
+            for err, part in zip(cuda_side, ("out", "dq", "dk", "dv")):
+                checks.add(f"{name}_{part}_vs_float64_oracle", err, tol)
+            cpu_vs_f64[name] = cpu_side
+    return {"checks": checks.results, "ok": checks.ok,
+            "cpu_plain_vs_float64_oracle": {"out_dq_dk_dv": cpu_vs_f64,
+                                            "cpu_math": _cpu_math()}}
 
 
 def _library_bwd_ms(q4, k4, v4, do4):
@@ -277,14 +321,52 @@ def parity_main_path(fa, kernels, rates) -> tuple[dict, dict]:
              "kernels": rows, "ok": checks.ok}, rows)
 
 
-def run_path(kernels, fn):
-    """Run one main-path phase with every launch count at 0 just before,
-    and return (its report, the counts just after)."""
+# Substrings of the device-kernel names of the port's attention kernels
+# (demangled "flash::flash_..." or mangled "_ZN5flash...").
+ATTENTION_KERNELS = ("flash::flash_", "_ZN5flash")
+
+
+def profile_step(step, state, tokens, step_ms: float) -> dict:
+    """One more step of a path's own warm ``step`` and ``state`` under
+    torch.profiler with CUDA activity: the 10 device kernels with the most
+    self time, the device time of the port's attention kernels and its
+    share of all device time and of ``step_ms`` (the path's timed step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, tokens)
+        torch.cuda.synchronize()
+    rows = sorted(({"kernel": e.key[:160],
+                    "ms": e.self_device_time_total / 1e3,
+                    "calls": e.count} for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.is_user_annotation), key=lambda r: -r["ms"])
+    if not rows:
+        return {"device_time": "not measured (no CUDA events in the trace)"}
+    device_ms = sum(r["ms"] for r in rows)
+    attn_ms = sum(r["ms"] for r in rows
+                  if any(n in r["kernel"] for n in ATTENTION_KERNELS))
+    return {"device_ms": device_ms, "attention_ms": attn_ms,
+            "attention_share_of_device": attn_ms / device_ms,
+            "attention_share_of_step": attn_ms / step_ms,
+            "step_ms": step_ms, "top10": rows[:10]}
+
+
+def run_path(kernels, measure):
+    """Run one main path, ``measure(profile=...)``, with every launch count
+    at 0 just before. The counts are read just after its timed steps,
+    before ``profile_step`` runs one more step on the same state; that
+    step's launches are not counted. Returns (report, counts)."""
+    counts: dict[str, int] = {}
+
+    def profiled(step, state, tokens, step_ms):
+        counts.update(kernels.LAUNCHES)
+        return profile_step(step, state, tokens, step_ms)
+
     kernels.reset_launch_counts()
-    report = fn()
-    torch.cuda.synchronize()
-    counts = dict(kernels.LAUNCHES)
-    return report, counts
+    return measure(profile=profiled), counts
 
 
 def main() -> int:
@@ -347,8 +429,9 @@ def main() -> int:
         return {"report": report, "ok": report["ok"]}
 
     def flagship():
-        report, counts = run_path(kernels, lambda: perf.measure_train_perf(
-            perf.mxu_config(), batch=8, t_len=1024, attn_impl="flash"))
+        report, counts = run_path(kernels, lambda profile: (
+            perf.measure_train_perf(perf.mxu_config(), batch=8, t_len=1024,
+                                    attn_impl="flash", profile=profile)))
         launches["flagship"] = counts
         ran = all(counts[n] > 0 for n in ("flash_fwd_whole_k", "flash_bwd_dq",
                                           "flash_bwd_dkdv"))
@@ -359,7 +442,7 @@ def main() -> int:
                 "ok": bool(report["ok"] and ran)}
 
     def long_context():
-        report, counts = run_path(kernels, lambda: perf.measure_long_context())
+        report, counts = run_path(kernels, perf.measure_long_context)
         launches["long_context"] = counts
         ran = all(counts[n] > 0 for n in ("flash_fwd_kblocked",
                                           "flash_bwd_dq", "flash_bwd_dkdv"))

@@ -13,24 +13,36 @@
 //   dq = ds . k * scale   dk = ds^T . q * scale   dv = p^T . do
 // ds is cast to the input dtype before the dq and dk products, and p
 // before the dv product, as the reference rounds them. Outputs are f32.
+// Both kernels recompute s and p from q and k (nothing [T, T] touches
+// device memory) and neither needs atomics. A tile wholly in the causal
+// future contributes exactly 0 (p underflows to 0 there), so skipping it
+// changes nothing.
 //
-// Design: both kernels recompute s and p from q and k (nothing [T, T]
-// touches device memory) and neither needs atomics:
-//   * dq: one block per (bh, q tile), looping over K tiles up to the
-//     causal edge, the dq tile accumulating in shared memory;
-//   * dkdv: one block per (bh, k tile), looping over q tiles from the
-//     causal edge to the end, dk and dv accumulating in shared memory.
-// A tile wholly in the causal future contributes exactly 0 (p underflows
-// to 0 there), so skipping it changes nothing.
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 989 TFLOP/s bf16, 3.35 TB/s),
+// flagship shape BH=256, T=1024, D=128, causal:
+//   dq:   ~103 GFLOP (104 us) vs ~0.40 GB (121 us): bytes-bound;
+//   dkdv: ~137 GFLOP (139 us) vs ~0.54 GB (161 us): bytes-bound;
+// at the long-context shape (BH=64, T=4096) both are operations-bound
+// (dq 417 us, dkdv 556 us).
 //
-// Bound on the H100 (flagship shape BH=256, T=1024, D=128, bf16, causal):
-//   dq:   ~103 GFLOP (~104 us at 989 TF/s) vs ~0.40 GB (~120 us at
-//         3.35 TB/s), the f32 dq output half of it: memory-bound;
-//   dkdv: ~137 GFLOP (~139 us) vs ~0.54 GB (~160 us): memory-bound.
-// This first version stages tiles through shared memory with wmma and runs
-// well above those bounds; wgmma/TMA and bf16 outputs are later work.
+// flash_bwd_dkdv, bf16 (flash_bwd_dkdv_wgmma_kernel): one block of two
+// consumer warpgroups per (bh, 128 keys), 64 keys each; the K and V tiles
+// stay in shared memory, and q, do, lse and drow tiles of 64 queries stream
+// through a 3-stage TMA/mbarrier ring from the causal edge to the end. The
+// block computes the transposed tiles S^T = K.Q^T and dP^T = V.dO^T (wgmma,
+// every operand K-major), so that P^T = exp(S^T * scale - lse) and
+// dS^T = P^T * (dP^T - drow) are rows of keys in registers, and packs them
+// in place into bf16 A fragments: dV += P^T.dO and dK += dS^T.Q are wgmmas
+// with A in registers and dO, Q read MN-major. The f32 dK and dV
+// accumulators stay in registers for the whole loop and are written once.
+// flash_bwd_dq and the f32 dkdv instance keep the first design: one block
+// per (bh, tile), tiles staged in shared memory, wmma (bf16) or CUDA-core
+// FMAs (f32), the accumulator in shared memory.
+
+#include <initializer_list>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace flash {
 
@@ -116,6 +128,7 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// Instantiated for f32 only: bf16 runs flash_bwd_dkdv_wgmma_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -224,6 +237,209 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+
+// -- flash_bwd_dkdv, bf16: wgmma + TMA ----------------------------------------
+
+template <int D>
+struct WgDkdv {
+  static constexpr int BK = 128, BQ = 64, NT = 256, STAGES = 3;
+  static constexpr uint32_t KBOX = BK * hopper::ROW_BYTES;  // [128][64] bf16
+  static constexpr uint32_t QBOX = BQ * hopper::ROW_BYTES;  // [64][64] bf16
+  static constexpr uint32_t KTILE = (D / hopper::BOX_COLS) * KBOX;
+  static constexpr uint32_t QTILE = (D / hopper::BOX_COLS) * QBOX;
+  static constexpr uint32_t ROW = BQ * sizeof(float);  // lse or drow tile
+  // one ring stage: q | do | lse | drow, kept 1024-byte aligned
+  static constexpr uint32_t STAGE =
+      (2 * QTILE + 2 * ROW + hopper::ATOM_BYTES - 1) / hopper::ATOM_BYTES *
+      hopper::ATOM_BYTES;
+  // 1024 bytes of slack to align the base | k | v | ring | barriers
+  static constexpr size_t bytes = 1024 + 2 * KTILE + STAGES * STAGE + 64;
+};
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                const __grid_constant__ CUtensorMap do_map,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ drow,
+                                float* __restrict__ dk, float* __restrict__ dv,
+                                int t, float scale) {
+  using namespace hopper;
+  using L = WgDkdv<D>;
+  constexpr int BK = L::BK, BQ = L::BQ, S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* vs = ks + L::KTILE;
+  unsigned char* ring = vs + L::KTILE;  // stage s at ring + s * STAGE
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(ring + S * L::STAGE);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid % 128 / 32;
+  const int lane = tid % 32;
+  const int k0 = blockIdx.x * BK;  // early k tiles see the most queries
+  const int bh = blockIdx.y;
+  const int n = (t - k0) / BQ;     // q tiles from the causal edge to the end
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto load_q = [&](int j) {  // q tile j into stage j % S
+    const int s = j % S;
+    unsigned char* st = ring + s * L::STAGE;
+    const int row = bh * t + k0 + j * BQ;
+    mbar_expect_tx(&full[s], 2 * L::QTILE + 2 * L::ROW);
+#pragma unroll
+    for (int b = 0; b < D / BOX_COLS; ++b) {
+      tma_load(st + b * L::QBOX, &q_map, &full[s], b * BOX_COLS, row);
+      tma_load(st + L::QTILE + b * L::QBOX, &do_map, &full[s], b * BOX_COLS,
+               row);
+    }
+    bulk_load(st + 2 * L::QTILE, lse + row, L::ROW, &full[s]);
+    bulk_load(st + 2 * L::QTILE + L::ROW, drow + row, L::ROW, &full[s]);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * L::KTILE);
+#pragma unroll
+    for (int b = 0; b < D / BOX_COLS; ++b) {
+      tma_load(ks + b * L::KBOX, &k_map, kv_bar, b * BOX_COLS, bh * t + k0);
+      tma_load(vs + b * L::KBOX, &v_map, kv_bar, b * BOX_COLS, bh * t + k0);
+    }
+    for (int j = 0; j < S - 1 && j < n; ++j) load_q(j);
+  }
+
+  // this thread's two keys (wgmma accumulator rows) and first query column
+  const int kw = k0 + 64 * wg;  // first key of this warpgroup
+  const int kr = kw + 16 * warp + lane / 4;
+  const int col = 2 * (lane % 4);
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.0f;
+
+  mbar_wait(kv_bar, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % S;
+    const int q0 = k0 + j * BQ;
+    if (tid == 0 && j + S - 1 < n) {
+      // stage (j - 1) % S is free once both warpgroups finished tile j - 1
+      if (j >= 1) mbar_wait(&empty[(j - 1) % S], ((j - 1) / S) & 1);
+      load_q(j + S - 1);
+    }
+    mbar_wait(&full[s], (j / S) & 1);
+    if (q0 + BQ <= kw) {  // wholly in the future of these keys: adds 0
+      if (lane == 0) mbar_arrive(&empty[s]);
+      continue;
+    }
+    const unsigned char* qt = ring + s * L::STAGE;
+    const unsigned char* dot = qt + L::QTILE;
+    const float* lse_t = reinterpret_cast<const float*>(qt + 2 * L::QTILE);
+    const float* drow_t = lse_t + BQ;
+
+    float st[BQ / 2], dpt[BQ / 2];  // S^T, dP^T: rows keys, columns queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(st, desc_k(ks, L::KBOX, 64 * wg, kk),
+               desc_k(qt, L::QBOX, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpt, desc_k(vs, L::KBOX, 64 * wg, kk),
+               desc_k(dot, L::QBOX, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // only the tile on this warpgroup's diagonal builds a mask: query
+    // column c is visible to the first key iff c >= need
+    const bool masked = q0 < kw + 63;
+    const int need = kr - q0 - col;
+    uint32_t pf[BQ / 4], dsf[BQ / 4];  // P^T, dS^T as bf16 A fragments
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i) {
+      const float2 ls = *reinterpret_cast<const float2*>(lse_t + 8 * i + col);
+      const float2 dr = *reinterpret_cast<const float2*>(drow_t + 8 * i + col);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // (first key, second key) x 2 columns
+        const int c = 8 * i + (e & 1);
+        float x = st[4 * i + e] * scale;
+        if (masked && c < need + (e >> 1) * 8) x = NEG_INF;
+        p[e] = exp2f((x - ((e & 1) ? ls.y : ls.x)) * LOG2E);
+        ds[e] = p[e] * (dpt[4 * i + e] - ((e & 1) ? dr.y : dr.x));
+      }
+      pf[i / 2 * 4 + i % 2 * 2] = pack_bf16(p[0], p[1]);
+      pf[i / 2 * 4 + i % 2 * 2 + 1] = pack_bf16(p[2], p[3]);
+      dsf[i / 2 * 4 + i % 2 * 2] = pack_bf16(ds[0], ds[1]);
+      dsf[i / 2 * 4 + i % 2 * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs(dva, pf + 4 * kk, desc_mn(dot, L::QBOX, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs(dka, dsf + 4 * kk, desc_mn(qt, L::QBOX, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pf);
+    fence_regs(dsf);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  const size_t off = ((size_t)bh * t + kr) * D + col;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    *reinterpret_cast<float2*>(dk + off + 8 * i) =
+        make_float2(dka[4 * i] * scale, dka[4 * i + 1] * scale);
+    *reinterpret_cast<float2*>(dk + off + 8 * D + 8 * i) =
+        make_float2(dka[4 * i + 2] * scale, dka[4 * i + 3] * scale);
+    *reinterpret_cast<float2*>(dv + off + 8 * i) =
+        make_float2(dva[4 * i], dva[4 * i + 1]);
+    *reinterpret_cast<float2*>(dv + off + 8 * D + 8 * i) =
+        make_float2(dva[4 * i + 2], dva[4 * i + 3]);
+  }
+}
+
+template <int D>
+int launch_dkdv_wgmma(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* drow,
+                      void* dk, void* dv, int bh, int t, float scale,
+                      cudaStream_t stream) {
+  using namespace hopper;
+  using L = WgDkdv<D>;
+  for (const void* p : {q, k, v, dout, lse, drow})
+    if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  const uint64_t rows = (uint64_t)bh * t;
+  int err = make_tile_map(&q_map, q, rows, D, L::BQ);
+  if (!err) err = make_tile_map(&k_map, k, rows, D, L::BK);
+  if (!err) err = make_tile_map(&v_map, v, rows, D, L::BK);
+  if (!err) err = make_tile_map(&do_map, dout, rows, D, L::BQ);
+  if (err) return err;
+  auto kern = flash_bwd_dkdv_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(t / L::BK, bh);
+  kern<<<grid, L::NT, L::bytes, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(drow), static_cast<float*>(dk),
+      static_cast<float*>(dv), t, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace flash
 
 // C interface, bound with ctypes by kernels.py, which validates every
@@ -256,11 +472,11 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v,
   using namespace flash;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16 && d == 128)
-    return launch_dkdv<__nv_bfloat16, 128>(q, k, v, dout, lse, drow, dk, dv,
-                                           bh, t, scale, s);
+    return launch_dkdv_wgmma<128>(q, k, v, dout, lse, drow, dk, dv, bh, t,
+                                  scale, s);
   if (dtype == kBF16 && d == 64)
-    return launch_dkdv<__nv_bfloat16, 64>(q, k, v, dout, lse, drow, dk, dv,
-                                          bh, t, scale, s);
+    return launch_dkdv_wgmma<64>(q, k, v, dout, lse, drow, dk, dv, bh, t,
+                                 scale, s);
   if (dtype == kF32 && d == 128)
     return launch_dkdv<float, 128>(q, k, v, dout, lse, drow, dk, dv, bh, t,
                                    scale, s);

@@ -1,8 +1,10 @@
 // Shared building blocks of the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu): tile sizes, shared-memory carving, global->shared tile
-// copies, warp reductions, and a shared-memory GEMM.
+// copies, warp reductions, and a shared-memory GEMM. The bf16 forward and
+// dk/dv kernels use hopper_common.cuh instead; what is here serves
+// flash_bwd_dq and the f32 instances.
 //
-// Every kernel here works on tiles staged in shared memory:
+// Every kernel built on these works on tiles staged in shared memory:
 //   * bf16 tiles multiply on the tensor cores through nvcuda::wmma
 //     (m16n16k16, bf16 inputs, f32 accumulation);
 //   * f32 tiles multiply on CUDA-core FMAs in full f32 (no TF32), so the

@@ -32,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -140,8 +140,8 @@ def build() -> dict[str, object]:
 
 def _check(name: str, tensors: dict[str, torch.Tensor],
            shapes: dict[str, tuple[int, ...]], dtypes: dict[str, object]):
-    """Raise ValueError unless every tensor is a contiguous CUDA tensor on
-    one device with its expected shape and dtype."""
+    """Raise ValueError unless every tensor is a contiguous, 16-byte aligned
+    CUDA tensor on one device with its expected shape and dtype."""
     device = None
     for key, x in tensors.items():
         if not x.is_cuda:
@@ -159,6 +159,8 @@ def _check(name: str, tensors: dict[str, torch.Tensor],
                              f"{dtypes[key]}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        if x.data_ptr() % 16:     # TMA and 16-byte vector loads
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
     return device
 
 

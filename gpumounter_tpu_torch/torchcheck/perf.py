@@ -11,7 +11,7 @@ measured on a TPU and are no target here.
 from __future__ import annotations
 
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -77,7 +77,9 @@ def measure_train_perf(cfg: ModelConfig | None = None, batch: int = 8,
                        t_len: int = 1024, window_a: int = 4,
                        window_b: int = 12, warmup_steps: int = 2,
                        attn_impl: str = "ring",
-                       device: str = "cuda") -> dict[str, Any]:
+                       device: str = "cuda",
+                       profile: Callable[..., dict] | None = None
+                       ) -> dict[str, Any]:
     """Time the single-device train step and report {train_step_ms,
     model_tflops_per_step, achieved_tflops, mfu, losses, ...}.
 
@@ -85,7 +87,11 @@ def measure_train_perf(cfg: ModelConfig | None = None, batch: int = 8,
     steps, each ended by ``torch.cuda.synchronize()``; the per-step time is
     the two-window difference ``(t_B - t_A) / (window_b - window_a)``, which
     cancels the constant per-window cost. ``step_ms_incl_sync`` keeps the
-    uncorrected figure."""
+    uncorrected figure.
+
+    ``profile``, when given, is called once after the timed windows as
+    ``profile(step, state, tokens, train_step_ms)`` on the same step and
+    state; what it returns is reported under ``"profile"``."""
     from gpumounter_tpu_torch.torchcheck import train as train_lib
 
     dev = resolve_device(device)
@@ -125,7 +131,7 @@ def measure_train_perf(cfg: ModelConfig | None = None, batch: int = 8,
     achieved_tflops = flops / step_s / 1e12
     name = torch.cuda.get_device_name(dev) if on_gpu else "cpu"
     peak = chip_peak_tflops(name)
-    return {
+    report = {
         "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
                    "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
                    "dtype": str(cfg.dtype).replace("torch.", ""),
@@ -146,16 +152,22 @@ def measure_train_perf(cfg: ModelConfig | None = None, batch: int = 8,
         "ok": bool(np.isfinite(losses).all() and losses[-1] < losses[0]
                    and step_s > 0),
     }
+    if profile is not None:
+        report["profile"] = profile(step, state, tokens, step_s * 1e3)
+    return report
 
 
-def measure_long_context(device: str = "cuda") -> dict[str, Any]:
+def measure_long_context(device: str = "cuda",
+                         profile: Callable[..., dict] | None = None
+                         ) -> dict[str, Any]:
     """Long-sequence training on the full-width model through the flash
     kernels: the seq 4096 x batch 2 row (8192 tokens per step, as the
-    flagship's 8 x 1024), where the forward takes its K-blocked contract."""
+    flagship's 8 x 1024), where the forward takes its K-blocked contract.
+    ``profile`` as in :func:`measure_train_perf`."""
     cfg = mxu_config()
     r = measure_train_perf(cfg, batch=2, t_len=4096, attn_impl="flash",
                            window_a=2, window_b=6, warmup_steps=1,
-                           device=device)
+                           device=device, profile=profile)
     return {"config": r["config"], "rows": [
         {"seq": 4096, "batch": 2, "tokens_per_step": 8192, "flash": r}],
         "ok": r["ok"]}

@@ -107,6 +107,88 @@ def test_fit_tile_matches_jax(preferred, total):
     assert tfa._fit_tile(preferred, total) == jpa._fit_tile(preferred, total)
 
 
+# flash_fwd's tiling (csrc/flash_fwd.cu, flash_fwd_wgmma_kernel): one block
+# per 128 q rows, K tiles of 128 keys.
+KERNEL_BQ = KERNEL_BK = 128
+
+
+def _kernel_loop_end(tk, q0, q_offset, k_offset, skip_tq, skip_tk,
+                     exact=True):
+    """Keys [0, end) that flash_fwd's block at row ``q0`` visits: the
+    Pallas skip of the K-blocked contract, then (``exact``) the causal stop
+    when every row of the block sees key ``k_offset``."""
+    end = tk
+    if skip_tq:
+        q_tile_last = q_offset + (q0 // skip_tq + 1) * skip_tq - 1
+        blocks = (0 if q_tile_last < k_offset
+                  else (q_tile_last - k_offset) // skip_tk + 1)
+        end = min(end, blocks * skip_tk)
+    if exact and q_offset + q0 >= k_offset:
+        seen = q_offset + q0 + KERNEL_BQ - k_offset
+        end = min(end, -(-seen // KERNEL_BK) * KERNEL_BK)
+    return end
+
+
+def _kernel_recurrence(q, k, v, q_offset, k_offset, scale, skip_tq, skip_tk,
+                       exact=True):
+    """flash_fwd's online softmax in plain torch at the kernel's tiling and
+    loop bounds, with the arithmetic of _flash_fwd_plain's K-blocked loop.
+    Returns (pv, m, l, K tiles visited)."""
+    bh, tq, d = q.shape
+    pv = torch.zeros((bh, tq, d))
+    m = torch.full((bh, tq), tra.NEG_INF)
+    l = torch.zeros((bh, tq))
+    tiles = 0
+    for q0 in range(0, tq, KERNEL_BQ):
+        rows = slice(q0, q0 + KERNEL_BQ)
+        end = _kernel_loop_end(k.shape[1], q0, q_offset, k_offset, skip_tq,
+                               skip_tk, exact)
+        for k0 in range(0, end, KERNEL_BK):
+            cols = slice(k0, k0 + KERNEL_BK)
+            s = tfa._masked_scores(q[:, rows], k[:, cols], q_offset + q0,
+                                   k_offset + k0, scale)
+            m_new = torch.maximum(m[:, rows], s.amax(dim=-1))
+            corr = torch.exp(m[:, rows] - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l[:, rows] = l[:, rows] * corr + p.sum(dim=-1)
+            pv[:, rows] = pv[:, rows] * corr[..., None] + torch.matmul(
+                p.to(v.dtype).float(), v[:, cols].float())
+            m[:, rows] = m_new
+            tiles += 1
+    return pv, m[:, None], l[:, None], tiles
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (1024, 1024), (0, 4096)])
+@pytest.mark.parametrize("skip", [(0, 0), (128, 128), (256, 512)])
+def test_fwd_kernel_loop_bound_is_exact(skip, offsets):
+    """The forward kernel's loop bound, both contracts (whole-K, K-blocked
+    at the kernel's tiles and at coarser Pallas tiles): stopping at the
+    causal edge changes no bit, runs exactly the causal tiles at offsets
+    where every row sees the first key, and does not fire at (0, 4096)."""
+    t = 512
+    q, k, v = _torch(*(x.transpose(0, 2, 1, 3).reshape(2, t, 64)
+                       for x in _qkv(16, t=t)))
+    scale = 64 ** -0.5
+    got = _kernel_recurrence(q, k, v, *offsets, scale, *skip)
+    every = _kernel_recurrence(q, k, v, *offsets, scale, *skip, exact=False)
+    for g, w in zip(got[:3], every[:3]):
+        assert torch.equal(g, w)        # a skipped tile adds exactly 0
+    plain = tfa._flash_fwd_plain(q, k, v, *offsets, scale, *skip)
+    for g, w in zip(got[:3], plain):
+        if skip == (KERNEL_BQ, KERNEL_BK):   # the same tiles, the same ops
+            assert torch.equal(g, w)
+        else:
+            _close(g, w, 1e-5)
+    n = t // KERNEL_BK
+    if offsets == (0, 4096):
+        assert got[3] == every[3]       # the causal stop does not fire
+        if skip == (0, 0):
+            assert torch.all(got[2] == t)
+    else:
+        assert got[3] == n * (n + 1) // 2   # exactly the causal tiles
+        assert every[3] > got[3] or skip == (KERNEL_BQ, KERNEL_BK)
+
+
 def _bwd_inputs(seed, t):
     """[BH, T, D] q, k, v, do and the lse, drow the forward gives."""
     q, k, v, do = (x.transpose(0, 2, 1, 3).reshape(2, t, 64)

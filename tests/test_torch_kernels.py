@@ -15,6 +15,7 @@ import torch
 
 from gpumounter_tpu_torch.torchcheck import flash_attention as tfa
 from gpumounter_tpu_torch.torchcheck import kernels
+from gpumounter_tpu_torch.torchcheck.ring_attention import NEG_INF
 
 
 @pytest.fixture
@@ -33,10 +34,18 @@ def _rel_fro(got, want):
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 128)])
-@pytest.mark.parametrize("skip", [(0, 0), (128, 128)])
-def test_kernel_fwd_matches_plain(cuda, dtype, d, skip):
+@pytest.mark.parametrize("skip", ["whole_k", "kblocked_128", "kblocked_main"])
+@pytest.mark.parametrize("t", [384, 512, 1536])
+def test_kernel_fwd_matches_plain(cuda, dtype, d, skip, t):
+    """Both contracts at ring offsets; the K-blocked one at the finest skip
+    tiles and at the main path's (512 x 1024 fitted to T, where the exact
+    causal stop removes tiles the Pallas skip keeps). T = 384 and 1536 are
+    odd multiples of 128."""
+    skip = {"whole_k": (0, 0), "kblocked_128": (128, 128),
+            "kblocked_main": (tfa._fit_tile(tfa.FWD_TILE_Q, t),
+                              tfa._fit_tile(tfa.FWD_K_BLOCK, t))}[skip]
     g = torch.Generator(cuda).manual_seed(0)
-    q, k, v = (torch.randn(4, 512, d, generator=g, device=cuda).to(dtype)
+    q, k, v = (torch.randn(4, t, d, generator=g, device=cuda).to(dtype)
                for _ in range(3))
     scale = d ** -0.5
     for offsets in ((0, 0), (1024, 1024), (0, 4096)):
@@ -47,14 +56,20 @@ def test_kernel_fwd_matches_plain(cuda, dtype, d, skip):
         norm_got = got[0] / got[2].transpose(1, 2).clamp_min(1e-30)
         norm_want = want[0] / want[2].transpose(1, 2).clamp_min(1e-30)
         assert float((norm_got - norm_want).abs().max()) <= tol
+        if offsets == (0, 4096) and skip == (0, 0):
+            # every row fully masked: m stays NEG_INF, p = exp(0) = 1
+            assert torch.all(got[1] == NEG_INF)
+            assert torch.all(got[2] == t)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 64),
                                      (torch.bfloat16, 128)])
-def test_kernel_bwd_matches_plain(cuda, dtype, d):
+@pytest.mark.parametrize("t", [384, 768, 1536])
+def test_kernel_bwd_matches_plain(cuda, dtype, d, t):
     g = torch.Generator(cuda).manual_seed(1)
-    q, k, v, do = (torch.randn(4, 768, d, generator=g, device=cuda).to(dtype)
+    q, k, v, do = (torch.randn(4, t, d, generator=g, device=cuda).to(dtype)
                    for _ in range(4))
     scale = d ** -0.5
     pv, m, l = tfa._flash_fwd_plain(q, k, v, 0, 0, scale)
@@ -67,6 +82,17 @@ def test_kernel_bwd_matches_plain(cuda, dtype, d):
             *tfa._flash_dkdv_plain(q, k, v, do, lse, drow, scale))
     for a, b in zip(got, want):
         assert _rel_fro(a, b) <= tol
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_misaligned_tensors(cuda):
+    """TMA needs 16-byte aligned bases: a contiguous view one element into
+    its storage is refused before any launch."""
+    flat = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:].view(2, 128, 64)
+    k = torch.zeros(2, 128, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.flash_fwd(q, k, k, 0, 0, 0.125)
 
 
 @pytest.mark.gpu

@@ -239,3 +239,23 @@ def test_measure_train_perf_smoke_cpu():
     assert r["step_ms_incl_sync"] > 0 and r["model_tflops_per_step"] > 0
     assert r["device_kind"] == "cpu" and r["mfu"] is None
     assert r["final_loss"] < r["first_loss"]
+
+
+def test_measure_train_perf_profile_runs_once_on_its_own_state():
+    """The profile hook runs once, after the timed windows, on the step and
+    state that were timed, and its result is reported."""
+    calls = []
+
+    def profile(step, state, tokens, step_ms):
+        calls.append((state.step, tuple(tokens.shape), step_ms))
+        step(state, tokens)
+        return {"seen": len(calls)}
+
+    r = tperf.measure_train_perf(TCFG, batch=2, t_len=128, window_a=1,
+                                 window_b=2, warmup_steps=1,
+                                 attn_impl="flash", device="cpu",
+                                 profile=profile)
+    assert r["profile"] == {"seen": 1}
+    (steps_done, shape, step_ms), = calls
+    assert steps_done == 1 + 1 + 2 and shape == (2, 128)
+    assert step_ms == r["train_step_ms"]
