@@ -6,25 +6,29 @@
 Phases, each printing one JSON line on stdout:
   1. environment — card name and power limit (nvidia-smi), device count,
      the card's published rates (perf.GPU_PEAKS; an unknown card fails
-     here), and the kernel build (nvcc from the checkout's sources);
+     here), and the kernel build (nvcc from the checkout's sources) with
+     each kernel's registers, stack and spill bytes from ptxas (a wgmma
+     kernel that spills fails here);
   2. parity — every kernel against its plain PyTorch version on the card:
      f32 at b1 h2 d64 (both forward contracts, ring offsets, a fully masked
      block merged away, a float64 oracle, T=768 and T=1536 through the
      trainable attention, whose T=1536 forward takes the K-blocked
      contract), then bf16 at the shapes the flagship and long-context
      steps give the kernels (the forward and the backward pair at each),
-     with each kernel's time, its bound, the plain
-     version's time and a PyTorch library call's as a yardstick;
+     with each kernel's time, its bound, the
+     plain version's time and a PyTorch library call's as a yardstick;
   3. probe — run_probe on the card (collectives are degenerate on 1 GPU);
   4. flagship — the full-width train step (mxu_config, b8 t1024 bf16,
      flash attention): loss finite and decreasing, step time, MFU, the
      launch counts of the kernels its timed steps ran, and one more step
      of the same state under torch.profiler (CUDA activity): the 10 device
-     kernels with the most self time and attention's share of the step;
+     kernels with the most self time, each attention kernel by name, and
+     attention's share of the step;
   5. long_context — the same model at seq 4096 b2, which runs the forward's
      K-blocked contract and the backward pair at T=4096, profiled the same
      way;
-  6. the kernels line, the card line, and the device line.
+  6. the kernels line (each entry names the device function and the line
+     of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
 versions); bf16 1e-2 on the normalised output and on gradients' relative
@@ -38,6 +42,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -81,6 +86,40 @@ def bound(flops: float, nbytes: float, rates) -> dict:
     t_ops, t_bytes = flops / rates[0], nbytes / rates[1]
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, stack and spill bytes of each kernel in an ``nvcc
+    -Xptxas -v`` report, keyed by kernel name and template arguments (for
+    example ``flash_bwd_dq_wgmma_kernel<128>``,
+    ``flash_fwd_kernel<f32, 64>``)."""
+    kernels: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"(flash_\w+?_kernel)I(f?)", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            if base is None:
+                name = mangled
+            else:
+                name = (f"{base.group(1)}<"
+                        f"{'f32, ' if base.group(2) else ''}"
+                        f"{', '.join(args)}>")
+            kernels[name] = {}
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if spill:
+            kernels[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                     map(int, spill.groups())))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            kernels[name]["registers"] = int(used.group(1))
+    return kernels
 
 
 def max_abs(a, b) -> float:
@@ -232,9 +271,10 @@ def check_shape(fa, kernels, checks, rows, path, b, t, skip, gen,
     D128 -> [b*32, t, 128]): the forward (whole-K when ``skip`` is (0, 0),
     else K-blocked over ``skip``) and the backward pair, each held against
     its plain version and timed beside its bound, its plain version and a
-    library call. The backward's lse and drow come from the plain forward,
-    as the train step makes them from the forward's. Adds rows keyed by
-    kernel and ``path``; returns SDPA's forward+backward ms at this shape."""
+    library call. The backward's lse and drow come from the plain
+    forward, as the train step makes them from the forward's. Adds rows
+    keyed by kernel and ``path``; returns SDPA's forward+backward ms at
+    this shape."""
     import torch.nn.functional as F
     h, d, es = 32, 128, 2
     bh, scale = b * h, d ** -0.5
@@ -329,8 +369,9 @@ ATTENTION_KERNELS = ("flash::flash_", "_ZN5flash")
 def profile_step(step, state, tokens, step_ms: float) -> dict:
     """One more step of a path's own warm ``step`` and ``state`` under
     torch.profiler with CUDA activity: the 10 device kernels with the most
-    self time, the device time of the port's attention kernels and its
-    share of all device time and of ``step_ms`` (the path's timed step)."""
+    self time, each of the port's attention kernels by name, their device
+    time and its share of all device time and of ``step_ms`` (the path's
+    timed step)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -346,12 +387,13 @@ def profile_step(step, state, tokens, step_ms: float) -> dict:
     if not rows:
         return {"device_time": "not measured (no CUDA events in the trace)"}
     device_ms = sum(r["ms"] for r in rows)
-    attn_ms = sum(r["ms"] for r in rows
-                  if any(n in r["kernel"] for n in ATTENTION_KERNELS))
+    attention = [r for r in rows
+                 if any(n in r["kernel"] for n in ATTENTION_KERNELS)]
+    attn_ms = sum(r["ms"] for r in attention)
     return {"device_ms": device_ms, "attention_ms": attn_ms,
             "attention_share_of_device": attn_ms / device_ms,
             "attention_share_of_step": attn_ms / step_ms,
-            "step_ms": step_ms, "top10": rows[:10]}
+            "step_ms": step_ms, "top10": rows[:10], "attention": attention}
 
 
 def run_path(kernels, measure):
@@ -367,6 +409,18 @@ def run_path(kernels, measure):
 
     kernels.reset_launch_counts()
     return measure(profile=profiled), counts
+
+
+def definition_line(src: str, func: str) -> int | None:
+    """The line of ``src`` (under csrc/) where device function ``func`` is
+    defined: its name at the start of a line, followed by its parameters."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), CSRC,
+                        src)
+    with open(path) as f:
+        for number, text in enumerate(f, 1):
+            if re.match(rf"\s*{func}\(", text):
+                return number
+    return None
 
 
 def main() -> int:
@@ -403,18 +457,21 @@ def main() -> int:
 
     def environment():
         info = kernels.build()
-        ptxas = {src: [ln.split(":", 1)[-1].strip()
-                       for ln in log.splitlines()
-                       if "entry function" in ln or "Used" in ln
-                       or "spill" in ln]
-                 for src, log in info["ptxas"].items()}
+        ptxas = {src: ptxas_summary(log) for src, log in info["ptxas"].items()}
+        # the main path's wgmma kernels must not spill (the f32 CUDA-core
+        # instances, for parity only, are reported and not held to it)
+        wgmma = {name: r for summary in ptxas.values()
+                 for name, r in summary.items() if "_wgmma_kernel<" in name}
+        spilled = sorted(name for name, r in wgmma.items()
+                         if r.get("spill_stores", 1) or r.get("spill_loads", 1))
         # the kernels' bounds need the card's published rates
         return {"nvidia_smi": card, "device": kind,
                 "device_count": torch.cuda.device_count(),
                 "torch": torch.__version__, "cuda": torch.version.cuda,
                 "peak_bf16_tflops": rates[0], "hbm_tb_per_s": rates[1],
                 "kernel_build_s": info["seconds"], "built": info["built"],
-                "ptxas": ptxas, "ok": None not in rates}
+                "ptxas": ptxas, "wgmma_spilled": spilled,
+                "ok": None not in rates and bool(wgmma) and not spilled}
 
     def parity():
         small = parity_small(fa, kernels, ra)
@@ -458,28 +515,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("long_context", long_context)
 
+    fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
+    dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")
+    dkdv = ("flash_bwd.cu", "flash_bwd_dkdv_wgmma_kernel")
     entries = (
-        ("flash_fwd (whole-K contract)", "flash_fwd.cu", 60, "fwd_whole_k",
+        ("flash_fwd (whole-K contract)", fwd, 60, "fwd_whole_k",
          "flagship", "flash_fwd_whole_k"),
-        ("flash_fwd (K-blocked contract)", "flash_fwd.cu", 273,
-         "fwd_kblocked", "long_context", "flash_fwd_kblocked"),
-        ("flash_bwd_dq (flagship)", "flash_bwd.cu", 332, "bwd_dq_flagship",
-         "flagship", "flash_bwd_dq"),
-        ("flash_bwd_dkdv (flagship)", "flash_bwd.cu", 368,
-         "bwd_dkdv_flagship", "flagship", "flash_bwd_dkdv"),
-        ("flash_bwd_dq (long context)", "flash_bwd.cu", 332,
-         "bwd_dq_long_context", "long_context", "flash_bwd_dq"),
-        ("flash_bwd_dkdv (long context)", "flash_bwd.cu", 368,
+        ("flash_fwd (K-blocked contract)", fwd, 273, "fwd_kblocked",
+         "long_context", "flash_fwd_kblocked"),
+        ("flash_bwd_dq (flagship)", dq, 332, "bwd_dq_flagship", "flagship",
+         "flash_bwd_dq"),
+        ("flash_bwd_dkdv (flagship)", dkdv, 368, "bwd_dkdv_flagship",
+         "flagship", "flash_bwd_dkdv"),
+        ("flash_bwd_dq (long context)", dq, 332, "bwd_dq_long_context",
+         "long_context", "flash_bwd_dq"),
+        ("flash_bwd_dkdv (long context)", dkdv, 368,
          "bwd_dkdv_long_context", "long_context", "flash_bwd_dkdv"),
     )
     line = []
-    for name, src, pallas_line, row_key, path, counter in entries:
+    for name, (src, func), pallas_line, row_key, path, counter in entries:
         row = kernel_rows.get(row_key, {})
         count = launches.get(path, {}).get(counter, 0)
         if count == 0 and "kernels" not in failed:
             failed.append("kernels")
         line.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
+            "kernel": func, "source_line": definition_line(src, func),
             "replaces": f"{PALLAS}:{pallas_line}", "launches": count,
             "path": path,
             **{key: row.get(key) for key in (

@@ -35,9 +35,23 @@
 // in place into bf16 A fragments: dV += P^T.dO and dK += dS^T.Q are wgmmas
 // with A in registers and dO, Q read MN-major. The f32 dK and dV
 // accumulators stay in registers for the whole loop and are written once.
-// flash_bwd_dq and the f32 dkdv instance keep the first design: one block
-// per (bh, tile), tiles staged in shared memory, wmma (bf16) or CUDA-core
-// FMAs (f32), the accumulator in shared memory.
+//
+// flash_bwd_dq, bf16 (flash_bwd_dq_wgmma_kernel): the same design turned
+// around. One block of two consumer warpgroups per (bh, 128 queries), 64
+// queries each; the Q and dO tiles stay in shared memory, lse and drow of
+// the thread's two rows in registers, and K and V tiles of 128 keys stream
+// through a TMA/mbarrier ring from key 0 to the causal edge. S = Q.K^T
+// and dP = dO.V^T are wgmmas into registers (every operand K-major);
+// P = exp(S * scale - lse) and dS = P * (dP - drow) stay in registers, dS
+// packs in place into bf16 A fragments, and dQ += dS.K is a wgmma with K
+// read MN-major (the same K tile S read K-major). Only the block's last
+// key tile, on the diagonal, builds a mask (in both warpgroups; half of it
+// is warpgroup 0's future and adds 0). The f32 dQ accumulator stays in
+// registers and is written once, so the result is bitwise deterministic.
+//
+// The f32 instances of both (parity against float64, not speed) keep the
+// first design: one block per (bh, tile), tiles staged in shared memory,
+// CUDA-core FMAs, the accumulator in shared memory.
 
 #include <initializer_list>
 
@@ -67,6 +81,7 @@ struct BwdLayout {
   static_assert(BQ == BK, "one tile height for q and k");
 };
 
+// Instantiated for f32 only: bf16 runs flash_bwd_dq_wgmma_kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -234,6 +249,192 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(drow),
       static_cast<float*>(dk), static_cast<float*>(dv), t, scale);
+  return (int)cudaGetLastError();
+}
+
+
+// -- flash_bwd_dq, bf16: wgmma + TMA ------------------------------------------
+
+// The ring holds as many stages as fit in the 227 KB (232,448 bytes) a
+// block may use, up to 4: 2 at D = 128, 4 at D = 64.
+template <int D>
+struct WgDq {
+  static constexpr int BQ = 128, BK = 128, NT = 256;
+  static constexpr uint32_t QBOX = BQ * hopper::ROW_BYTES;  // [128][64] bf16
+  static constexpr uint32_t KBOX = BK * hopper::ROW_BYTES;  // [128][64] bf16
+  static constexpr uint32_t QTILE = (D / hopper::BOX_COLS) * QBOX;
+  static constexpr uint32_t KTILE = (D / hopper::BOX_COLS) * KBOX;
+  static constexpr uint32_t STAGE = 2 * KTILE;  // one ring stage: k | v
+  static constexpr int FIT = (232448 - 1024 - 2 * QTILE - 128) / STAGE;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  // 1024 bytes of slack to align the base | q | do | ring | barriers
+  static constexpr size_t bytes =
+      1024 + 2 * QTILE + STAGES * STAGE + 8 * (1 + 2 * STAGES);
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+};
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const __grid_constant__ CUtensorMap do_map,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ drow,
+                              float* __restrict__ dq, int t, float scale) {
+  using namespace hopper;
+  using L = WgDq<D>;
+  constexpr int BQ = L::BQ, BK = L::BK, S = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* dos = qs + L::QTILE;
+  unsigned char* ring = dos + L::QTILE;  // stage s at ring + s * STAGE
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(ring + S * L::STAGE);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid % 128 / 32;
+  const int lane = tid % 32;
+  // late q tiles loop over the most keys: start them first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int bh = blockIdx.y;
+  const int n = (q0 + BQ) / BK;  // k tiles from key 0 to the causal edge
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto load_kv = [&](int j) {  // k/v tile j into stage j % S
+    const int s = j % S;
+    unsigned char* st = ring + s * L::STAGE;
+    const int row = bh * t + j * BK;
+    mbar_expect_tx(&full[s], L::STAGE);
+#pragma unroll
+    for (int b = 0; b < D / BOX_COLS; ++b) {
+      tma_load(st + b * L::KBOX, &k_map, &full[s], b * BOX_COLS, row);
+      tma_load(st + L::KTILE + b * L::KBOX, &v_map, &full[s], b * BOX_COLS,
+               row);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, 2 * L::QTILE);
+#pragma unroll
+    for (int b = 0; b < D / BOX_COLS; ++b) {
+      tma_load(qs + b * L::QBOX, &q_map, q_bar, b * BOX_COLS, bh * t + q0);
+      tma_load(dos + b * L::QBOX, &do_map, q_bar, b * BOX_COLS, bh * t + q0);
+    }
+    for (int j = 0; j < S - 1 && j < n; ++j) load_kv(j);
+  }
+
+  // this thread's two query rows (wgmma accumulator rows), first key column
+  const int qw = q0 + 64 * wg;  // first query of this warpgroup
+  const int rw = 16 * warp + lane / 4;
+  const int col = 2 * (lane % 4);
+  const size_t row0 = (size_t)bh * t + qw + rw;
+  const float ls0 = lse[row0], ls1 = lse[row0 + 8];
+  const float dr0 = drow[row0], dr1 = drow[row0 + 8];
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.0f;
+
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n; ++j) {
+    const int s = j % S;
+    const int k0 = j * BK;
+    if (tid == 0 && j + S - 1 < n) {
+      // stage (j - 1) % S is free once both warpgroups finished tile j - 1
+      if (j >= 1) mbar_wait(&empty[(j - 1) % S], ((j - 1) / S) & 1);
+      load_kv(j + S - 1);
+    }
+    mbar_wait(&full[s], (j / S) & 1);
+    const unsigned char* kt = ring + s * L::STAGE;
+    const unsigned char* vt = kt + L::KTILE;
+
+    float st[BK / 2], dpt[BK / 2];  // S, dP: rows queries, columns keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(st, desc_k(qs, L::QBOX, 64 * wg, kk),
+               desc_k(kt, L::KBOX, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dpt, desc_k(dos, L::QBOX, 64 * wg, kk),
+               desc_k(vt, L::KBOX, 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // only a tile that crosses this warpgroup's diagonal builds a mask:
+    // key column c is visible to the first row iff c <= need
+    const bool masked = k0 + BK - 1 > qw;
+    const int need = qw + rw - k0;
+    uint32_t dsf[BK / 4];  // dS as bf16 A fragments, 4 per k16 step
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // (first row, second row) x 2 columns
+        const int c = 8 * i + col + (e & 1);
+        float x = st[4 * i + e] * scale;
+        if (masked && c > need + (e >> 1) * 8) x = NEG_INF;
+        const float p = exp2f((x - ((e >> 1) ? ls1 : ls0)) * LOG2E);
+        ds[e] = p * (dpt[4 * i + e] - ((e >> 1) ? dr1 : dr0));
+      }
+      dsf[i / 2 * 4 + i % 2 * 2] = pack_bf16(ds[0], ds[1]);
+      dsf[i / 2 * 4 + i % 2 * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(dqa, dsf + 4 * kk, desc_mn(kt, L::KBOX, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dqa);
+    fence_regs(dsf);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  float* out = dq + row0 * D + col;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    *reinterpret_cast<float2*>(out + 8 * i) =
+        make_float2(dqa[4 * i] * scale, dqa[4 * i + 1] * scale);
+    *reinterpret_cast<float2*>(out + 8 * D + 8 * i) =
+        make_float2(dqa[4 * i + 2] * scale, dqa[4 * i + 3] * scale);
+  }
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* drow,
+                    void* dq, int bh, int t, float scale,
+                    cudaStream_t stream) {
+  using namespace hopper;
+  using L = WgDq<D>;
+  for (const void* p : {q, k, v, dout, lse, drow})
+    if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  const uint64_t rows = (uint64_t)bh * t;
+  int err = make_tile_map(&q_map, q, rows, D, L::BQ);
+  if (!err) err = make_tile_map(&k_map, k, rows, D, L::BK);
+  if (!err) err = make_tile_map(&v_map, v, rows, D, L::BK);
+  if (!err) err = make_tile_map(&do_map, dout, rows, D, L::BQ);
+  if (err) return err;
+  auto kern = flash_bwd_dq_wgmma_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(t / L::BQ, bh);
+  kern<<<grid, L::NT, L::bytes, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(drow), static_cast<float*>(dq), t, scale);
   return (int)cudaGetLastError();
 }
 
@@ -451,11 +652,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   using namespace flash;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16 && d == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, drow, dq, bh, t,
-                                         scale, s);
+    return launch_dq_wgmma<128>(q, k, v, dout, lse, drow, dq, bh, t, scale,
+                                s);
   if (dtype == kBF16 && d == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, drow, dq, bh, t,
-                                        scale, s);
+    return launch_dq_wgmma<64>(q, k, v, dout, lse, drow, dq, bh, t, scale, s);
   if (dtype == kF32 && d == 128)
     return launch_dq<float, 128>(q, k, v, dout, lse, drow, dq, bh, t, scale,
                                  s);

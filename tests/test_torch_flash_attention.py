@@ -214,6 +214,60 @@ def test_plain_backward_matches_pallas_fused(t):
         _close(g, w)
 
 
+# flash_bwd_dq's tiling (csrc/flash_bwd.cu, flash_bwd_dq_wgmma_kernel): one
+# block per 128 queries, a warpgroup per 64 of them, K/V tiles of 128 keys.
+DQ_BQ, DQ_WG, DQ_BK = 128, 64, 128
+
+
+def _dq_kernel_recurrence(q, k, v, do, lse, drow, scale, stop=True):
+    """flash_bwd_dq in plain torch at the kernel's tiling: each warpgroup's
+    64 rows accumulate dS.K tile by tile over the block's loop, key 0 to the
+    block's causal edge (to the end of the sequence when not ``stop``), with
+    ds rounded to the input dtype per tile. Returns (dq, the (first row,
+    first key) tiles visited)."""
+    bh, t, d = q.shape
+    dq = torch.zeros((bh, t, d))
+    visited = []
+    for q0 in range(0, t, DQ_BQ):
+        for qw in range(q0, q0 + DQ_BQ, DQ_WG):
+            rows = slice(qw, qw + DQ_WG)
+            for k0 in range(0, q0 + DQ_BQ if stop else t, DQ_BK):
+                cols = slice(k0, k0 + DQ_BK)
+                s = tfa._masked_scores(q[:, rows], k[:, cols], qw, k0, scale)
+                p = torch.exp(s - lse[:, 0, rows, None])
+                dp = torch.matmul(do[:, rows].float(),
+                                  v[:, cols].float().transpose(-1, -2))
+                ds = (p * (dp - drow[:, 0, rows, None])).to(q.dtype).float()
+                dq[:, rows] += torch.matmul(ds, k[:, cols].float())
+                visited.append((qw, k0))
+    return dq * scale, visited
+
+
+@pytest.mark.parametrize("t", [128, 256, 384, 512, 640, 768, 896])
+def test_dq_kernel_tiling_is_exact(t):
+    """The dq kernel's loop: stopping at each block's causal edge changes
+    no bit against visiting every key tile, each warpgroup visits exactly
+    the tiles holding a key it sees, and the result matches the plain
+    version and the Pallas fused backward."""
+    q, k, v, do, lse, drow = _torch(*_bwd_inputs(17, t))
+    scale = 64 ** -0.5
+    got, visited = _dq_kernel_recurrence(q, k, v, do, lse, drow, scale)
+    every, visited_all = _dq_kernel_recurrence(q, k, v, do, lse, drow, scale,
+                                               stop=False)
+    assert torch.equal(got, every)      # a tile past the edge adds exactly 0
+    causal = [(qw, k0) for qw in range(0, t, DQ_WG)
+              for k0 in range(0, qw + DQ_WG, DQ_BK)]
+    assert sorted(visited) == sorted(causal)
+    past_edge = sum(2 * (t - q0 - DQ_BQ) // DQ_BK
+                    for q0 in range(0, t, DQ_BQ))   # 2 warpgroups per block
+    assert len(visited_all) - len(visited) == past_edge
+    _close(got, tfa._flash_dq_plain(q, k, v, do, lse, drow, scale), 1e-5)
+    want = jpa.flash_backward_fused(*_jax(*(x.numpy() for x in (
+        q, k, v, lse, drow, do))), interpret=True, tile_acc=128,
+        tile_red=128)[0]
+    _close(got, want)
+
+
 def _grads(attn, q, k, v, w):
     q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
     (attn(q, k, v) * w).sum().backward()

@@ -30,6 +30,19 @@ def _rel_fro(got, want):
     return float((got - want).norm() / want.norm())
 
 
+def _bwd_args(device, dtype, bh, t, d, seed):
+    """(q, k, v, do, lse, drow, scale) with lse and drow from the plain
+    forward, as the trainable attention forms them."""
+    g = torch.Generator(device).manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, t, d, generator=g, device=device)
+                   .to(dtype) for _ in range(4))
+    scale = d ** -0.5
+    pv, m, l = tfa._flash_fwd_plain(q, k, v, 0, 0, scale)
+    lse = m + torch.log(l)
+    drow = (do.float() * (pv / l.transpose(1, 2))).sum(-1)[:, None]
+    return q, k, v, do, lse, drow, scale
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
                                      (torch.bfloat16, 64),
@@ -66,22 +79,27 @@ def test_kernel_fwd_matches_plain(cuda, dtype, d, skip, t):
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 128)])
-@pytest.mark.parametrize("t", [384, 768, 1536])
-def test_kernel_bwd_matches_plain(cuda, dtype, d, t):
-    g = torch.Generator(cuda).manual_seed(1)
-    q, k, v, do = (torch.randn(4, t, d, generator=g, device=cuda).to(dtype)
-                   for _ in range(4))
-    scale = d ** -0.5
-    pv, m, l = tfa._flash_fwd_plain(q, k, v, 0, 0, scale)
-    lse = m + torch.log(l)
-    drow = (do.float() * (pv / l.transpose(1, 2))).sum(-1)[:, None]
+@pytest.mark.parametrize("bh,t", [(4, 128), (4, 384), (4, 768), (4, 1536),
+                                  (2, 4096)])
+def test_kernel_bwd_matches_plain(cuda, dtype, d, bh, t):
+    """T = 128 is one dq block (a single 128-key tile, masked in both
+    warpgroups); T = 4096 is the long-context length."""
+    args = _bwd_args(cuda, dtype, bh, t, d, 1)
     tol = 1e-4 if dtype == torch.float32 else 1e-2
-    got = (kernels.flash_bwd_dq(q, k, v, do, lse, drow, scale),
-           *kernels.flash_bwd_dkdv(q, k, v, do, lse, drow, scale))
-    want = (tfa._flash_dq_plain(q, k, v, do, lse, drow, scale),
-            *tfa._flash_dkdv_plain(q, k, v, do, lse, drow, scale))
+    got = (kernels.flash_bwd_dq(*args), *kernels.flash_bwd_dkdv(*args))
+    want = (tfa._flash_dq_plain(*args), *tfa._flash_dkdv_plain(*args))
     for a, b in zip(got, want):
         assert _rel_fro(a, b) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_bwd_dq_is_deterministic(cuda, d):
+    """dq is written once from registers, without atomics: two launches on
+    the same inputs agree bit for bit."""
+    args = _bwd_args(cuda, torch.bfloat16, 4, 1024, d, 2)
+    assert torch.equal(kernels.flash_bwd_dq(*args),
+                       kernels.flash_bwd_dq(*args))
 
 
 @pytest.mark.gpu
@@ -93,6 +111,13 @@ def test_kernel_wrappers_refuse_misaligned_tensors(cuda):
     k = torch.zeros(2, 128, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
         kernels.flash_fwd(q, k, k, 0, 0, 0.125)
+    rows = torch.zeros(2 * 128 + 1, device=cuda)
+    lse = torch.zeros(2, 1, 128, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.flash_bwd_dq(q, k, k, k, lse, lse, 0.125)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels.flash_bwd_dq(k, k, k, k, rows[1:].view(2, 1, 128), lse,
+                             0.125)
 
 
 @pytest.mark.gpu
