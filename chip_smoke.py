@@ -27,7 +27,19 @@ Phases, each printing one JSON line on stdout:
   5. long_context — the same model at seq 4096 b2, which runs the forward's
      K-blocked contract and the backward pair at T=4096, profiled the same
      way;
-  6. the kernels line (each entry names the device function and the line
+  6. parallel — (a) ``entry.dryrun_multichip`` (the dp x sp x tp, ep and
+     pp train steps) and the probe's ``validate_training`` over NCCL, one
+     process per card (one card: a world of one, marked
+     ``degenerate_single_device``); (b) a 4-rank ring replayed on this
+     card at the long-context attention shape (B2 T4096, 32 x 128, bf16,
+     T_local 1024): the ring module's block steps, 16 whole-K
+     ``flash_fwd`` launches at ring offsets, then its backward steps,
+     held against the flash attention over the whole T; the kernel held
+     against its plain version at each of the 16 blocks; each block
+     kind's kernel time beside its bound, its plain version and SDPA, the
+     16 launches timed as one pass, and the schedule's times; (c) the
+     replay's launch count;
+  7. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -182,7 +194,8 @@ def _cpu_math() -> dict:
 
 def parity_small(fa, kernels, ra) -> dict:
     """f32 at b1 h2 d64: contracts, offsets, masking, oracle, T=768/1536;
-    and the same T=768/1536 trainable attention in bf16. The f32
+    bf16 at d64 and d128 at every block pair of a 4-rank ring; and the same
+    T=768/1536 trainable attention in bf16. The f32
     trainable attention is also held against a float64 oracle, the card's
     side gated and the CPU side reported, so that a drift shows its side."""
     checks = Checks()
@@ -203,6 +216,25 @@ def parity_small(fa, kernels, ra) -> dict:
             checks.add(tag + "_l", rel_fro(got[2], want[2].clamp_min(1e-30))
                        if float(want[2].abs().max()) > 0
                        else max_abs(got[2], want[2]), 1e-4)
+    # bf16 at every block pair of a 4-rank ring of T_local 256: diagonal,
+    # wholly visible (q_offset > k_offset) and wholly future blocks
+    ring = [(r * 256, src * 256) for r in range(4) for src in range(4)]
+    for d in (64, 128):
+        qb, kb, vb = (_rand((2, 256, d), torch.bfloat16, gen)
+                      for _ in range(3))
+        for skip in ((0, 0), (128, 128)):
+            errs = {"out": 0.0, "m": 0.0}
+            for offsets in ring:
+                got = kernels.flash_fwd(qb, kb, vb, *offsets, d ** -0.5, *skip)
+                want = fa._flash_fwd_plain(qb, kb, vb, *offsets, d ** -0.5,
+                                           *skip)
+                errs["out"] = max(errs["out"], max_abs(
+                    _normalized(got[0], got[2]), _normalized(want[0],
+                                                             want[2])))
+                errs["m"] = max(errs["m"], max_abs(got[1], want[1]))
+            tag = f"fwd_bf16_d{d}_skip{skip[0]}_ring_offsets"
+            checks.add(tag + "_out", errs["out"], 1e-2)
+            checks.add(tag + "_m", errs["m"], 1e-3)
     # a block wholly in the future merges away (whole-K contract)
     pv0, m0, l0 = kernels.flash_fwd(q, k, v, 0, 0, scale)
     pv1, m1, l1 = kernels.flash_fwd(q, k, v, 0, 4096, scale)
@@ -361,6 +393,213 @@ def parity_main_path(fa, kernels, rates) -> tuple[dict, dict]:
              "kernels": rows, "ok": checks.ok}, rows)
 
 
+def ring_replay(fa, kernels, ra, rates) -> tuple[dict, dict, dict]:
+    """A 4-rank ring replayed on one card at the long-context attention
+    shape (B2, T4096, 32 heads x 128, bf16; T_local 1024): for each rank r
+    and rotation i, the ring module's own block step on the block
+    (r - i) mod 4 — 16 whole-K ``flash_fwd`` launches, 4 diagonal, 6 wholly
+    visible, 6 wholly future — then its backward steps the same way. Held
+    against the flash attention over the whole T. Returns (report, the
+    kernels-line row, the replay's launch counts)."""
+    import torch.nn.functional as F
+    b, t, h, d, n = 2, 4096, 32, 128, 4
+    tl, bh, scale = t // n, b * h, d ** -0.5
+    gen = torch.Generator("cuda").manual_seed(2)
+    q, k, v, do = (_rand((b, t, h, d), torch.bfloat16, gen) for _ in range(4))
+    qs, ks, vs, dos = (x.split(tl, dim=1) for x in (q, k, v, do))
+
+    def forward():
+        outs, lses = [], []
+        for r in range(n):
+            state = ra.ring_state(qs[r])
+            for i in range(n):
+                src = (r - i) % n
+                state = ra.ring_step(state, qs[r], ks[src], vs[src], r * tl,
+                                     src * tl, block_impl="pallas")
+            out, lse = ra.ring_output(state, q.dtype)
+            outs.append(out)
+            lses.append(lse)
+        return outs, lses
+
+    def backward(outs, lses):
+        zeros = [torch.zeros((b, tl, h, d), device="cuda") for _ in range(n)]
+        dq, dk, dv = [], list(zeros), [z.clone() for z in zeros]
+        for r in range(n):
+            drow = fa.softmax_jacobian_diag(dos[r], outs[r])
+            g_q = torch.zeros((b, tl, h, d), device="cuda")
+            for i in range(n):
+                src = (r - i) % n
+                g_q, dk[src], dv[src] = ra.ring_bwd_step(
+                    (g_q, dk[src], dv[src]), qs[r], ks[src], vs[src], dos[r],
+                    drow, lses[r], r * tl, src * tl)
+            dq.append(g_q)
+        return tuple(torch.cat(x, dim=1) for x in (dq, dk, dv))
+
+    kernels.reset_launch_counts()
+    outs, lses = forward()
+    grads = backward(outs, lses)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+
+    checks = Checks()
+    attn = fa.make_flash_attention()
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ref_out = attn(*leaves)
+    ref_grads = torch.autograd.grad(ref_out, leaves, do)
+    _, m, l = fa.flash_block_bthd(q, k, v, 0, 0, tile_q=fa.FWD_TILE_Q,
+                                  k_block=fa.FWD_K_BLOCK)
+    out_err = max_abs(torch.cat(outs, dim=1), ref_out)
+    checks.add("ring_out", out_err, 1e-2)
+    checks.add("ring_lse", max_abs(torch.cat(lses, dim=2), m + torch.log(l)),
+               1e-3)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        checks.add(f"ring_{name}_rel_fro", rel_fro(got, want), 1e-2)
+    del ref_out, ref_grads, leaves, m, l, grads
+
+    # The whole-K kernel against its plain version at each of the replay's
+    # 16 blocks, [BH, T_local, D] at (1024 r, 1024 src).
+    qh, kh, vh = ([fa._to_bhd(x) for x in xs] for xs in (qs, ks, vs))
+    schedule = [(r, (r - i) % n) for r in range(n) for i in range(n)]
+
+    def kind_of(r, src):
+        return ("diagonal" if r == src else "visible" if r > src
+                else "future")
+
+    block_errs = {kd: {"out": 0.0, "m": 0.0, "l": 0.0}
+                  for kd in ("diagonal", "visible", "future")}
+    for r, src in schedule:
+        args = (qh[r], kh[src], vh[src], r * tl, src * tl, scale)
+        got, want = kernels.flash_fwd(*args), fa._flash_fwd_plain(*args)
+        errs = block_errs[kind_of(r, src)]
+        errs["out"] = max(errs["out"], max_abs(_normalized(got[0], got[2]),
+                                               _normalized(want[0], want[2])))
+        errs["m"] = max(errs["m"], max_abs(got[1], want[1]))
+        errs["l"] = max(errs["l"], rel_fro(got[2], want[2]))
+        del got, want
+    for kind, errs in block_errs.items():
+        checks.add(f"block_{kind}_out", errs["out"], 1e-2)
+        checks.add(f"block_{kind}_m", errs["m"], 1e-3)
+        checks.add(f"block_{kind}_l_rel_fro", errs["l"], 1e-3)
+    block_err = max(e for errs in block_errs.values() for e in errs.values())
+
+    # Bytes and operations each kind of block needs. A wholly future block
+    # has every score masked to exactly -1e30, so p = 1 at every key: its
+    # pv is the sum of v over the keys and l = T_local, whatever q and k
+    # hold. It reads v only, and sums it once.
+    io = bh * tl * d * 2                  # one [BH, T_local, D] bf16 tensor
+    out_bytes = bh * tl * d * 4 + 2 * bh * tl * 4     # pv, m, l in f32
+    need = {"diagonal": (4 * d * bh * tl * (tl + 1) / 2, 3 * io + out_bytes),
+            "visible": (4 * d * bh * tl * tl, 3 * io + out_bytes),
+            "future": (bh * tl * d, io + out_bytes)}
+    per_kind = {}
+    for kind, (r, src) in (("diagonal", (1, 1)), ("visible", (2, 0)),
+                           ("future", (0, 1))):
+        args = (qh[r], kh[src], vh[src], r * tl, src * tl, scale)
+        q4, k4, v4 = (x.view(b, h, tl, d) for x in args[:3])
+        library = None
+        if kind != "future":
+            library = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=kind == "diagonal"))
+        per_kind[kind] = {
+            "offsets": [r * tl, src * tl],
+            "per_ring_forward": sum(kind_of(*rs) == kind for rs in schedule),
+            "ms": cuda_ms(lambda: kernels.flash_fwd(*args)),
+            "plain_ms": cuda_ms(lambda: fa._flash_fwd_plain(*args), reps=3),
+            "library_ms": library,
+            **{f"err_{key}": e for key, e in block_errs[kind].items()},
+            **bound(*need[kind], rates)}
+
+    # The 16 launches of one ring forward, each timing one pass over the
+    # schedule (no merges): the kernel, its plain version, and SDPA on the
+    # 10 blocks that are not wholly future (SDPA has no fully masked row).
+    def over_schedule(fn, blocks=schedule):
+        def run():
+            for r, src in blocks:
+                fn(qh[r], kh[src], vh[src], r * tl, src * tl, scale)
+        return run
+
+    def sdpa(q_, k_, v_, q_offset, k_offset, _):
+        F.scaled_dot_product_attention(
+            *(x.view(b, h, tl, d) for x in (q_, k_, v_)),
+            is_causal=q_offset == k_offset)
+
+    visible = [rs for rs in schedule if kind_of(*rs) != "future"]
+    flops, nbytes = (sum(need[kind_of(*rs)][i] for rs in schedule)
+                     for i in (0, 1))
+    row = {"max_abs_err": block_err,
+           "ms": cuda_ms(over_schedule(kernels.flash_fwd)),
+           "plain_ms": cuda_ms(over_schedule(fa._flash_fwd_plain), warmup=1,
+                               reps=3),
+           "library_ms": cuda_ms(over_schedule(sdpa, visible)),
+           **bound(flops, nbytes, rates),
+           "shape": [bh, tl, d], "dtype": "bfloat16",
+           "unit": "one 4-rank ring forward: 16 launches, timed as one pass "
+                   "(library: SDPA on its 10 blocks that are not wholly "
+                   "future)"}
+    del qh, kh, vh
+
+    def fwd_bwd():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        torch.autograd.grad(attn(*leaves), leaves, do)
+
+    with torch.no_grad():
+        flash_fwd_ms = cuda_ms(lambda: attn(q, k, v), reps=5)
+    timing = {
+        "ring_forward_ms": cuda_ms(forward, warmup=1, reps=3),
+        "ring_backward_ms": cuda_ms(lambda: backward(outs, lses), warmup=1,
+                                    reps=3),
+        "flash_attention_fwd_ms": flash_fwd_ms,
+        "flash_attention_fwd_bwd_ms": cuda_ms(fwd_bwd, warmup=1, reps=3)}
+    del q, k, v, do, qs, ks, vs, dos, outs, lses
+    torch.cuda.empty_cache()
+    return ({"shape": {"batch": b, "seq": t, "heads": h, "head_dim": d,
+                       "ranks": n, "t_local": tl}, "checks": checks.results,
+             "blocks": per_kind, "schedule": timing, "launches": counts,
+             "ok": checks.ok}, row, counts)
+
+
+def ring_rank(device, seed: int) -> dict:
+    """One rank of the ring over NCCL (two or more cards): the same
+    B2 x T4096 x 32 x 128 bf16 inputs on every rank (one seed), the
+    trainable ring attention over the world with ``block_impl="pallas"``
+    on this rank's sequence shard, forward and backward, held against the
+    flash attention over the whole T on this card; the ring's
+    forward+backward time and this rank's kernel launches."""
+    import torch.distributed as dist
+
+    from gpumounter_tpu_torch.torchcheck import flash_attention as fa
+    from gpumounter_tpu_torch.torchcheck import kernels
+    from gpumounter_tpu_torch.torchcheck import ring_attention as ra
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, r = dist.get_world_size(), dist.get_rank()
+    b, t, h, d = 2, 4096, 32, 128
+    mine = slice(r * t // n, (r + 1) * t // n)
+    gen = torch.Generator(device).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [x[:, mine].contiguous().requires_grad_(True) for x in (q, k, v)]
+    do_mine = do[:, mine].contiguous()
+    attn = ra.make_ring_attention(dist.group.WORLD, block_impl="pallas")
+    kernels.reset_launch_counts()
+    out = attn(*leaves)
+    grads = torch.autograd.grad(out, leaves, do_mine)
+    torch.cuda.synchronize(device)
+    counts = dict(kernels.LAUNCHES)
+    ref_leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ref = fa.make_flash_attention()(*ref_leaves)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do)
+    errors = {"out": max_abs(out, ref[:, mine])}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        errors[name + "_rel_fro"] = rel_fro(got, want[:, mine])
+
+    def fwd_bwd():
+        torch.autograd.grad(attn(*leaves), leaves, do_mine)
+
+    return {"rank": r, "t_local": t // n, "errors": errors,
+            "launches": counts,
+            "ring_fwd_bwd_ms": cuda_ms(fwd_bwd, warmup=1, reps=3)}
+
+
 # Substrings of the device-kernel names of the port's attention kernels
 # (demangled "flash::flash_..." or mangled "_ZN5flash...").
 ATTENTION_KERNELS = ("flash::flash_", "_ZN5flash")
@@ -429,6 +668,8 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gpumounter_tpu_torch import entry
+    from gpumounter_tpu_torch.torchcheck import dist as dist_lib
     from gpumounter_tpu_torch.torchcheck import flash_attention as fa
     from gpumounter_tpu_torch.torchcheck import kernels
     from gpumounter_tpu_torch.torchcheck import perf, probe
@@ -506,6 +747,38 @@ def main() -> int:
         return {"report": report, "launches": counts, "kernels_ran": ran,
                 "ok": bool(report["ok"] and ran)}
 
+    def parallel():
+        count = torch.cuda.device_count()
+        # (a) the entry points over NCCL, one process per card
+        dryrun = entry.dryrun_multichip(count, device="cuda")
+        training = probe.validate_training(device="cuda", n_devices=count)
+        report = {}
+        ring_ok = True
+        if count > 1:     # the ring itself over NCCL at full width
+            ranks = dist_lib.run_world(count, ring_rank, (3,), device="cuda")
+            checks = Checks()
+            for rank in ranks:
+                for name, err in rank["errors"].items():
+                    checks.add(f"rank{rank['rank']}_{name}", err, 1e-2)
+            ring_ok = checks.ok and all(
+                rank["launches"]["flash_fwd_whole_k"] == count
+                for rank in ranks)
+            report["nccl_ring"] = {"ranks": ranks, "checks": checks.results,
+                                   "ok": ring_ok}
+        # (b) the 4-rank ring replayed on this card, (c) its launches
+        replay, row, counts = ring_replay(fa, kernels, ra, tuple(
+            r * 1e12 for r in rates))
+        kernel_rows["fwd_whole_k_ring"] = row
+        launches["parallel"] = counts
+        ran = counts["flash_fwd_whole_k"] > 0
+        return {"n_devices": count,
+                # one card: a world of one, no link crossed
+                "degenerate_single_device": count == 1,
+                "dryrun_multichip": dryrun, "validate_training": training,
+                **report, "ring_replay": replay, "kernels_ran": ran,
+                "ok": bool(training["ok"] and replay["ok"] and ran
+                           and ring_ok)}
+
     phase("environment", environment)
     if failed:             # nothing can run without the kernels and rates
         return 1
@@ -514,6 +787,8 @@ def main() -> int:
     phase("flagship", flagship)
     torch.cuda.empty_cache()
     phase("long_context", long_context)
+    torch.cuda.empty_cache()
+    phase("parallel", parallel)
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")
@@ -531,6 +806,8 @@ def main() -> int:
          "long_context", "flash_bwd_dq"),
         ("flash_bwd_dkdv (long context)", dkdv, 368,
          "bwd_dkdv_long_context", "long_context", "flash_bwd_dkdv"),
+        ("flash_fwd (whole-K, ring offsets)", fwd, 60, "fwd_whole_k_ring",
+         "parallel", "flash_fwd_whole_k"),
     )
     line = []
     for name, (src, func), pallas_line, row_key, path, counter in entries:
@@ -545,7 +822,8 @@ def main() -> int:
             "path": path,
             **{key: row.get(key) for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "shape", "dtype")}})
+                "library_ms", "shape", "dtype")},
+            **({"unit": row["unit"]} if "unit" in row else {})})
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     if failed:

@@ -5,7 +5,10 @@
 "wo", "ln2": {"g"}, "w1", "w2"}, ...]}``. Given that tree with numpy leaves
 (``jax.tree.map(np.asarray, params)``), :func:`params_from_jax` names each
 leaf as :class:`~.model.Transformer` names its parameter, so the same
-weights run through both packages.
+weights run through both packages. The MoE and pipeline parameters are
+plain trees of tensors in both packages (``{"router", "w1", "w2"}``; a
+list of ``{"w1", "w2"}`` layers or their stacked form), which
+:func:`tensors_from_jax` carries across as they are.
 """
 
 from __future__ import annotations
@@ -16,19 +19,32 @@ import numpy as np
 import torch
 
 
+def _tensor(leaf) -> torch.Tensor:
+    arr = np.array(leaf, copy=True)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own (JAX's comes from ml_dtypes):
+        # carry the bits
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def tensors_from_jax(np_tree: Any, device: str | torch.device = "cpu"
+                     ) -> Any:
+    """A tree of dicts, lists and numpy leaves (a JAX pytree through
+    ``np.asarray``) as the same tree of tensors on ``device``."""
+    if isinstance(np_tree, dict):
+        return {k: tensors_from_jax(v, device) for k, v in np_tree.items()}
+    if isinstance(np_tree, (list, tuple)):
+        return type(np_tree)(tensors_from_jax(v, device) for v in np_tree)
+    return _tensor(np_tree).to(device)
+
+
 def params_from_jax(np_tree: dict[str, Any]) -> dict[str, torch.Tensor]:
     """The JAX parameter pytree (numpy leaves) as a ``state_dict``."""
     state: dict[str, torch.Tensor] = {}
 
     def put(name: str, leaf) -> None:
-        arr = np.array(leaf, copy=True)
-        if arr.dtype.name == "bfloat16":
-            # numpy has no bfloat16 of its own (JAX's comes from
-            # ml_dtypes): carry the bits
-            state[name] = torch.from_numpy(arr.view(np.uint16)).view(
-                torch.bfloat16)
-        else:
-            state[name] = torch.from_numpy(arr)
+        state[name] = _tensor(leaf)
 
     put("embed", np_tree["embed"])
     put("lm_head", np_tree["lm_head"])

@@ -4,8 +4,9 @@ Counterpart of :mod:`gpumounter_tpu.jaxcheck.probe`. After an attach the
 workload Pod must (1) see the GPUs — ``torch.cuda.device_count() ==
 expected`` — and (2) be able to run real compute on them: an exact-integer
 all-reduce and a ring send/recv over one process per device (NCCL on GPUs,
-gloo with ``--cpu-devices``), then the flagship model training with finite,
-decreasing loss.
+gloo with ``--cpu-devices``), then the toy flagship model training with
+finite, decreasing loss — sharded over a ``(data, seq, model)`` mesh of
+every device when there are two or more.
 
 Departure from the JAX probe: CUDA fixes the set of devices a process sees
 at its first CUDA call, and there is no counterpart of JAX's
@@ -26,9 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import multiprocessing
-import queue
-import socket
 import subprocess
 import sys
 import time
@@ -36,7 +34,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from gpumounter_tpu_torch.torchcheck import dist as dist_lib
 from gpumounter_tpu_torch.torchcheck import resolve_device
 from gpumounter_tpu_torch.utils.log import get_logger
 
@@ -90,42 +90,15 @@ def wait_for_devices(expected: int, timeout_s: float = 60.0,
         time.sleep(poll_s)
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _collective_worker(rank: int, world: int, port: int, backend: str,
-                       results) -> None:
-    """One process of :func:`validate_collectives`: joins the group,
-    all-reduces its rank and passes it one step round the ring."""
-    import torch.distributed as dist
-    try:
-        device = "cpu"
-        if backend == "nccl":
-            torch.cuda.set_device(rank)
-            device = f"cuda:{rank}"
-        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                                world_size=world, rank=rank)
-        try:
-            x = torch.tensor([rank], dtype=torch.int64, device=device)
-            dist.all_reduce(x)
-            total = int(x.item())
-            received = rank
-            if world > 1:
-                send = torch.tensor([rank], dtype=torch.int64, device=device)
-                recv = torch.empty_like(send)
-                ops = [dist.P2POp(dist.isend, send, (rank + 1) % world),
-                       dist.P2POp(dist.irecv, recv, (rank - 1) % world)]
-                for req in dist.batch_isend_irecv(ops):
-                    req.wait()
-                received = int(recv.item())
-        finally:
-            dist.destroy_process_group()
-        results.put((rank, total, received, None))
-    except Exception as e:   # reported to the parent, which judges the run
-        results.put((rank, None, None, repr(e)))
+def _collective_check(device: torch.device) -> tuple[int, int]:
+    """One rank of :func:`validate_collectives`: all-reduces its rank and
+    passes it one step round the ring. Returns (sum, rank received)."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.tensor([rank], dtype=torch.int64, device=device)
+    dist.all_reduce(x)
+    sent = torch.tensor([rank], dtype=torch.int64, device=device)
+    received = dist_lib.permute([sent], dist.group.WORLD)[0]
+    return int(x.item()), int(received.item())
 
 
 def validate_collectives(n_devices: int | None = None,
@@ -138,66 +111,49 @@ def validate_collectives(n_devices: int | None = None,
     dev = resolve_device(device)
     n = n_devices or (torch.cuda.device_count() if dev.type == "cuda" else 1)
     backend = "nccl" if dev.type == "cuda" else "gloo"
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_collective_worker,
-                         args=(r, n, port, backend, results))
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    got: dict[int, tuple] = {}
     errors: list[str] = []
-    deadline = time.monotonic() + COLLECTIVE_TIMEOUT_S
     try:
-        while len(got) < n and time.monotonic() < deadline:
-            try:
-                rank, total, received, err = results.get(timeout=1.0)
-            except queue.Empty:
-                if not any(p.is_alive() for p in procs) and results.empty():
-                    break
-                continue
-            got[rank] = (total, received)
-            if err:
-                errors.append(f"rank {rank}: {err}")
-    finally:
-        for p in procs:
-            p.join(timeout=10)
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
+        got = dist_lib.run_world(n, _collective_check, device=dev,
+                                 timeout_s=COLLECTIVE_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as e:
+        got, errors = [], [str(e)[-2000:]]
     expected_total = n * (n - 1) // 2
-    allreduce_ok = (len(got) == n and not errors
-                    and all(t == expected_total for t, _ in got.values()))
-    ring_ok = (len(got) == n and not errors
-               and all(got[r][1] == (r - 1) % n for r in got))
+    allreduce_ok = (len(got) == n
+                    and all(t == expected_total for t, _ in got))
+    ring_ok = (len(got) == n
+               and all(got[r][1] == (r - 1) % n for r in range(n)))
     report = {"n_devices": n, "backend": backend,
               "allreduce_ok": bool(allreduce_ok), "ring_ok": bool(ring_ok),
               # a 1-device group moves no bytes between devices: "ok" then
               # means the degenerate case ran, not that links work
               "degenerate_single_device": bool(n == 1),
               "ok": bool(allreduce_ok and ring_ok)}
-    if errors or len(got) < n:
-        report["errors"] = errors or [f"{n - len(got)} rank(s) never "
-                                      "reported"]
+    if errors:
+        report["errors"] = errors
     return report
 
 
-def validate_training(n_steps: int = 4, device: str = "cuda"
-                      ) -> dict[str, Any]:
-    """Train the toy flagship model on one device; loss must be finite and
-    decreasing — compute is real, not just enumerable. (The JAX probe
-    shards this step over every device; the port's mesh is a later
-    slice.)"""
+def _train_mesh(device: torch.device, n_steps: int) -> dict[str, Any]:
+    """One rank of :func:`validate_training` over a mesh: the toy model's
+    sharded step over ``make_mesh()`` (the seq dim takes every device),
+    T = 16 x seq. Every rank returns the same report."""
     from gpumounter_tpu_torch.torchcheck import model as model_lib
     from gpumounter_tpu_torch.torchcheck import train as train_lib
 
-    dev = resolve_device(device)
     cfg = model_lib.ModelConfig()
-    state = train_lib.init_state(cfg, seed=0, device=dev)
-    step = train_lib.make_train_step(cfg)
-    tokens = train_lib.make_batch(torch.Generator(dev).manual_seed(1), 8, 64,
-                                  cfg.vocab)
+    mesh = model_lib.make_mesh(device=device)
+    state = train_lib.init_state(cfg, seed=0, device=device, mesh=mesh)
+    step = train_lib.make_train_step(cfg, mesh)
+    seq = dist_lib.axis_size(mesh, "seq")
+    tokens = train_lib.make_batch(torch.Generator(device).manual_seed(1), 8,
+                                  16 * seq, cfg.vocab)
+    tokens = dist_lib.shard(tokens, mesh, ("data", "seq"))
+    report = _train_loop(step, state, tokens, n_steps)
+    report["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return report
+
+
+def _train_loop(step, state, tokens, n_steps: int) -> dict[str, Any]:
     t0 = time.monotonic()
     first_loss = float("nan")
     for i in range(n_steps):
@@ -209,6 +165,28 @@ def validate_training(n_steps: int = 4, device: str = "cuda"
     ok = bool(np.isfinite(final_loss) and final_loss < first_loss)
     return {"mesh": None, "first_loss": first_loss, "final_loss": final_loss,
             "steps": n_steps, "elapsed_s": round(elapsed, 3), "ok": ok}
+
+
+def validate_training(n_steps: int = 4, device: str = "cuda",
+                      n_devices: int = 1) -> dict[str, Any]:
+    """Train the toy flagship model; loss must be finite and decreasing —
+    compute is real, not just enumerable. With ``n_devices`` > 1 the step
+    is sharded over a ``make_mesh()`` of that many processes (one per
+    device, as the JAX probe shards it over every device) and the report
+    names the mesh; with one device it runs in this process."""
+    from gpumounter_tpu_torch.torchcheck import model as model_lib
+    from gpumounter_tpu_torch.torchcheck import train as train_lib
+
+    dev = resolve_device(device)
+    if n_devices > 1:
+        return dist_lib.run_world(n_devices, _train_mesh, (n_steps,),
+                                  device=dev)[0]
+    cfg = model_lib.ModelConfig()
+    state = train_lib.init_state(cfg, seed=0, device=dev)
+    step = train_lib.make_train_step(cfg)
+    tokens = train_lib.make_batch(torch.Generator(dev).manual_seed(1), 8, 64,
+                                  cfg.vocab)
+    return _train_loop(step, state, tokens, n_steps)
 
 
 def run_probe(expected: int | None = None, timeout_s: float = 60.0,
@@ -229,7 +207,7 @@ def run_probe(expected: int | None = None, timeout_s: float = 60.0,
     except Exception as e:
         report["collectives"] = {"ok": False, "error": repr(e)}
     try:
-        report["training"] = validate_training(device=device)
+        report["training"] = validate_training(device=device, n_devices=n)
     except Exception as e:
         report["training"] = {"ok": False, "error": repr(e)}
     report["ok"] = report["collectives"]["ok"] and report["training"]["ok"]

@@ -53,7 +53,9 @@ def test_kernel_fwd_matches_plain(cuda, dtype, d, skip, t):
     """Both contracts at ring offsets; the K-blocked one at the finest skip
     tiles and at the main path's (512 x 1024 fitted to T, where the exact
     causal stop removes tiles the Pallas skip keeps). T = 384 and 1536 are
-    odd multiples of 128."""
+    odd multiples of 128. The offsets are every block pair a 4-rank ring of
+    T_local = T meets — diagonal, wholly visible (q_offset > k_offset: the
+    loop's end clamps to TK) and wholly future — and three more."""
     skip = {"whole_k": (0, 0), "kblocked_128": (128, 128),
             "kblocked_main": (tfa._fit_tile(tfa.FWD_TILE_Q, t),
                               tfa._fit_tile(tfa.FWD_K_BLOCK, t))}[skip]
@@ -61,7 +63,8 @@ def test_kernel_fwd_matches_plain(cuda, dtype, d, skip, t):
     q, k, v = (torch.randn(4, t, d, generator=g, device=cuda).to(dtype)
                for _ in range(3))
     scale = d ** -0.5
-    for offsets in ((0, 0), (1024, 1024), (0, 4096)):
+    ring = [(r * t, src * t) for r in range(4) for src in range(4)]
+    for offsets in ((1024, 1024), (0, 4096), *ring):
         got = kernels.flash_fwd(q, k, v, *offsets, scale, *skip)
         want = tfa._flash_fwd_plain(q, k, v, *offsets, scale, *skip)
         tol = 1e-4 if dtype == torch.float32 else 1e-2

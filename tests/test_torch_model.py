@@ -185,10 +185,9 @@ def test_make_batch_is_arithmetic_mod_vocab():
 
 
 def test_make_attention_without_mesh():
-    assert tmodel.make_attention(None, TCFG, "ring") is \
-        tmodel.full_attention
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.make_attention(object(), TCFG, "ring")
+    for impl in ("ring", "ulysses", "ulysses_flash", "full"):
+        assert tmodel.make_attention(None, TCFG, impl) is \
+            tmodel.full_attention
     with pytest.raises(ValueError, match="unknown"):
         tmodel.make_attention(None, TCFG, "nope")
 

@@ -1,5 +1,6 @@
 """The port's in-pod probe on the CPU: gloo collectives over worker
-processes, the toy training check, and the CLI's exit codes."""
+processes, the toy training check (one process, and sharded over a world
+of gloo processes), and the CLI's exit codes."""
 
 import json
 import os
@@ -29,6 +30,15 @@ def test_single_device_collectives_are_marked_degenerate():
 def test_validate_training_on_cpu():
     r = probe.validate_training(device="cpu")
     assert r["ok"] and r["final_loss"] < r["first_loss"]
+    assert r["mesh"] is None
+
+
+def test_validate_training_over_four_gloo_processes_reports_mesh():
+    """With more than one device the toy step is sharded over make_mesh():
+    the seq dim takes all four, T = 16 x 4."""
+    r = probe.validate_training(device="cpu", n_devices=4)
+    assert r["mesh"] == {"data": 1, "seq": 4, "model": 1}
+    assert r["ok"] and r["final_loss"] < r["first_loss"], r
 
 
 def test_run_probe_on_cpu():
@@ -58,9 +68,11 @@ def _cli(*args):
 
 
 def test_cli_exit_codes():
-    ok = _cli("--cpu-devices", "2", "--expect", "2")
+    ok = _cli("--cpu-devices", "4", "--expect", "4")
     assert ok.returncode == 0, ok.stderr[-2000:]
-    assert json.loads(ok.stdout.strip().splitlines()[-1])["ok"] is True
+    report = json.loads(ok.stdout.strip().splitlines()[-1])
+    assert report["ok"] is True
+    assert report["training"]["mesh"] == {"data": 1, "seq": 4, "model": 1}
     timeout = _cli("--cpu-devices", "2", "--expect", "4", "--timeout", "0")
     assert timeout.returncode == 2
     assert "expected 4 devices" in json.loads(
