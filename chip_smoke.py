@@ -39,7 +39,24 @@ Phases, each printing one JSON line on stdout:
      kind's kernel time beside its bound, its plain version and SDPA, the
      16 launches timed as one pass, and the schedule's times; (c) the
      replay's launch count;
-  7. the kernels line (each entry names the device function and the line
+  7. elastic — (a) on one card, the flagship state at full width (the
+     flash step, b8 x t1024, ~4.84 GB of bf16 parameters and AdamW
+     moments) in a world of one over NCCL: two steps, ``drain_sharded``
+     generation 1, one uninterrupted reference step, the state dropped,
+     ``shutdown_distributed`` and ``initialize_distributed`` on a new port
+     in this process, ``restore_sharded`` (every leaf bitwise equal to the
+     drained host copy), and one step whose loss must be within 1e-3 of
+     the reference; the drain and restore split into their parts, bytes,
+     GB/s, free disk and peak device memory; then the legacy
+     ``drain_restore_cycle`` on the probe's toy config. (b) with two or
+     more cards, ``MemberRunner`` processes (one per card) re-federate
+     over NCCL at full width on the Megatron split (mesh (1, 1, n)), riding
+     resizes 2 -> 4 -> 2 on four cards (1 -> 2 -> 1 on two) against a
+     stand-in for the master's ``/slicez`` and ``/slice/barrier``
+     (``SliceMaster``, served here): step numbers strictly increase,
+     fingerprints survive each transition, the loss goes down, and the
+     members resized out exit 0. On one card (b) is reported degenerate;
+  8. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -51,12 +68,17 @@ failed.
 
 from __future__ import annotations
 
+import gc
+import http.server
 import json
 import math
+import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -650,6 +672,406 @@ def run_path(kernels, measure):
     return measure(profile=profiled), counts
 
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+# Checkpoints of the elastic phase: under the checkout's build directory
+# (not committed), removed when the phase ends.
+ELASTIC_DIR = os.path.join(REPO, "build", "elastic")
+
+
+def _tree_pairs(a, b, path=""):
+    """(path, leaf of a, leaf of b) for every leaf of two trees of dicts
+    with the same keys."""
+    if isinstance(a, dict):
+        for key in a:
+            yield from _tree_pairs(a[key], b[key], f"{path}/{key}")
+    else:
+        yield path, a, b
+
+
+def drain_restore_one_card(kernels, card: str) -> dict:
+    """Part (a) of the elastic phase: the flagship state's sharded drain,
+    an in-process NCCL teardown and re-init, and its restore, at full
+    width in a world of one (``tpu_selftest.check_drain_cycle`` at the
+    flagship width, on the flash step)."""
+    from gpumounter_tpu_torch.torchcheck import drain, elastic, federation
+    from gpumounter_tpu_torch.torchcheck import model, perf, probe, train
+
+    device = torch.device("cuda", 0)
+    root = os.path.join(ELASTIC_DIR, "one_card")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free_before = shutil.disk_usage(root).free
+    cfg = perf.mxu_config()
+    specs = elastic.state_specs(cfg)
+    torch.cuda.reset_peak_memory_stats(device)
+    probe.initialize_distributed(f"127.0.0.1:{federation.free_port()}", 1, 0,
+                                 device)
+    kernels.reset_launch_counts()
+    mesh = model.make_mesh(device=device)
+    state = train.init_state(cfg, seed=0, device=device, mesh=mesh)
+    step = train.make_train_step(cfg, mesh, attn_impl="flash")
+    tokens = train.make_batch(torch.Generator(device).manual_seed(1), 8, 1024,
+                              cfg.vocab)
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, tokens)
+        losses.append(float(loss))
+    n_params = sum(p.numel() for p in state.model.parameters())
+
+    drain_t: dict = {}
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    drain.drain_sharded(train.state_tree(state), root, 1, specs=specs,
+                        mesh=mesh, timings=drain_t)
+    drain_s = time.perf_counter() - t0
+    host = drain._map(lambda x: x.detach().to("cpu", copy=True)
+                      if isinstance(x, torch.Tensor) else x,
+                      train.state_tree(state))
+    _, ref_loss = step(state, tokens)           # the uninterrupted step
+    ref_loss = float(ref_loss)
+
+    # drop the state and leave the world, then join a new one
+    del state, step, mesh, loss
+    gc.collect()
+    t0 = time.perf_counter()
+    left = probe.shutdown_distributed()
+    shutdown_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    probe.initialize_distributed(f"127.0.0.1:{federation.free_port()}", 1, 0,
+                                 device)
+    init_s = time.perf_counter() - t0
+
+    restore_t: dict = {}
+    t0 = time.perf_counter()
+    mesh = model.make_mesh(device=device)
+    tree = drain.restore_sharded(root, specs, mesh=mesh, device=device,
+                                 expect_generation=1, timings=restore_t)
+    restore_s = time.perf_counter() - t0
+    # the check against the drained host copy (not timed)
+    mismatched = [path for path, got, want in _tree_pairs(tree, host)
+                  if not (isinstance(want, int) and int(got) == want
+                          or isinstance(want, torch.Tensor)
+                          and got.dtype == want.dtype
+                          and torch.equal(got.cpu(), want))]
+    t0 = time.perf_counter()
+    state = train.state_from_tree(cfg, tree, device)
+    torch.cuda.synchronize(device)
+    restore_t["optimizer_rebuild_s"] = time.perf_counter() - t0
+    restore_s += restore_t["optimizer_rebuild_s"]
+    del tree
+    step = train.make_train_step(cfg, mesh, attn_impl="flash")
+    state, loss = step(state, tokens)
+    resumed_loss = float(loss)
+    torch.cuda.synchronize(device)
+    counts = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device)
+    del state, step, mesh, host
+    probe.shutdown_distributed()
+    shutil.rmtree(root, ignore_errors=True)
+
+    nbytes = drain_t.get("bytes", 0)
+    err = abs(resumed_loss - ref_loss)
+    ran = all(counts[n] > 0 for n in ("flash_fwd_whole_k", "flash_bwd_dq",
+                                      "flash_bwd_dkdv"))
+    return {
+        "nvidia_smi": card, "parameters": n_params, "state_bytes": nbytes,
+        "losses": losses, "ref_loss": ref_loss, "resumed_loss": resumed_loss,
+        "abs_err": err, "tol": 1e-3, "leaves_mismatched": mismatched,
+        "drain_s": drain_s, "drain_split_s": drain_t,
+        "drain_gb_per_s": nbytes / drain_s / 1e9,
+        "left_world": left, "shutdown_s": shutdown_s, "initialize_s": init_s,
+        "restore_s": restore_s, "restore_split_s": restore_t,
+        "restore_gb_per_s": nbytes / restore_s / 1e9,
+        "free_disk_bytes_before": free_before,
+        "peak_device_memory_bytes": peak, "launches": counts,
+        "kernels_ran": ran,
+        "ok": bool(not mismatched and math.isfinite(resumed_loss)
+                   and err <= 1e-3 and ran and left)}
+
+
+def legacy_cycle_toy() -> dict:
+    """The legacy single-file ``drain_restore_cycle`` on the probe's toy
+    config, on the card."""
+    from gpumounter_tpu_torch.torchcheck import drain, elastic, model, train
+
+    device = torch.device("cuda", 0)
+    cfg = model.ModelConfig()
+    state = train.init_state(cfg, seed=0, device=device)
+    step = train.make_train_step(cfg)
+    tokens = train.make_batch(torch.Generator(device).manual_seed(1), 4, 64,
+                              cfg.vocab)
+    for _ in range(3):
+        state, _ = step(state, tokens)
+    tree = train.state_tree(state)
+    t0 = time.perf_counter()
+    restored = drain.drain_restore_cycle(tree, elastic.state_specs(cfg),
+                                         device=device)
+    cycle_s = time.perf_counter() - t0
+    same = all(int(got) == want if isinstance(want, int)
+               else torch.equal(got.cpu(), want.cpu())
+               for _, got, want in _tree_pairs(restored, tree))
+    _, ref_loss = step(state, tokens)
+    again = train.state_from_tree(cfg, restored, device)
+    _, loss = step(again, tokens)
+    err = abs(float(loss) - float(ref_loss))
+    return {"cycle_s": cycle_s, "bitwise": same, "abs_err": err,
+            "ok": bool(same and err <= 1e-3)}
+
+
+class SliceMaster:
+    """A stand-in for the two control-plane endpoints a member reads, for
+    one slice group: ``GET /slicez`` (the group's generation and chip
+    count) and ``/slice/barrier`` (POST join, GET status), answering the
+    JSON ``master/slicetxn.py`` answers (``barrier_join``,
+    ``barrier_status``, ``_barrier_payload``) with one device per member.
+    ``resize`` bumps the generation and arms the barrier for the new
+    membership, as ``POST /slice/resize`` does. Served on localhost."""
+
+    def __init__(self, group: str, members: list[str]):
+        self.group = group
+        self.lock = threading.Lock()
+        self.generation = 0
+        self.resize(members)
+        master = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _send(self, status: int, payload: dict) -> None:
+                body = json.dumps(payload).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path.startswith("/slicez"):
+                    self._send(200, master.slicez())
+                elif self.path.startswith("/slice/barrier"):
+                    self._send(*master.status())
+                else:
+                    self._send(404, {"result": "NotFound"})
+
+            def do_POST(self):
+                length = int(self.headers.get("Content-Length") or 0)
+                try:
+                    body = json.loads(self.rfile.read(length) or b"{}")
+                    int(body["generation"])
+                except (ValueError, KeyError, TypeError):
+                    self._send(400, {"result": "BadRequest"})
+                    return
+                self._send(*master.join(body))
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                      Handler)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def resize(self, members: list[str]) -> int:
+        with self.lock:
+            self.generation += 1
+            self.members = list(members)
+            self.joined: dict[str, str] = {}
+            self.plan: dict | None = None
+            self.armed = time.time()
+            return self.generation
+
+    def slicez(self) -> dict:
+        with self.lock:
+            return {"groups": {self.group: {
+                "generation": self.generation,
+                "chips": len(self.members)}}}
+
+    def _payload(self) -> dict:
+        payload = {"group": self.group, "generation": self.generation,
+                   "expected": len(self.members),
+                   "members": list(self.members),
+                   "joined": sorted(self.joined),
+                   "complete": self.plan is not None,
+                   "age_s": round(time.time() - self.armed, 3)}
+        if self.plan is None:
+            payload["missing"] = [m for m in self.members
+                                  if m not in self.joined]
+            payload["stuck"] = False
+        else:
+            payload["plan"] = dict(self.plan)
+        return payload
+
+    def status(self) -> tuple[int, dict]:
+        with self.lock:
+            return 200, self._payload()
+
+    def join(self, body: dict) -> tuple[int, dict]:
+        generation, member = int(body["generation"]), body.get("member")
+        with self.lock:
+            if body.get("group") != self.group:
+                return 404, {"result": "SliceNotFound",
+                             "group": body.get("group")}
+            if generation != self.generation:
+                stale = generation < self.generation
+                return 409, {"result": "StaleGeneration" if stale
+                             else "UnknownGeneration",
+                             "current": self.generation}
+            if member not in self.members:
+                return 403, {"result": "NotAMember",
+                             "generation": self.generation,
+                             "members": list(self.members)}
+            if self.plan is None:
+                self.joined[member] = body.get("address") or ""
+                if len(self.joined) == len(self.members):
+                    self.plan = {"coordinator": self.joined[self.members[0]],
+                                 "num_processes": len(self.members),
+                                 "members": list(self.members)}
+            return 200, self._payload()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def federation_member(index: int, base: str, group: str, root: str,
+                      status_path: str, stop_path: str) -> None:
+    """One member process of part (b): the flagship config on the
+    Megatron split (the model dim absorbs the world), the flash step,
+    card ``index``."""
+    import faulthandler
+    faulthandler.enable()           # a native crash prints its stacks
+    sys.path.insert(0, REPO)
+    from gpumounter_tpu_torch.torchcheck import federation, perf, train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runner = federation.MemberRunner(
+        base, group, f"default/member-{index}", root,
+        device=f"cuda:{index}", status_path=status_path, stop_path=stop_path,
+        barrier_timeout_s=300.0, lr=3e-4, seq_len=1024, batch=8,
+        cfg=perf.mxu_config(), data=1, seq=1, model=None,
+        step_factory=lambda cfg, mesh: train.make_train_step(
+            cfg, mesh, attn_impl="flash"))
+    sys.exit(runner.run())
+
+
+def _records(path: str) -> list[dict]:
+    try:
+        with open(path) as f:
+            return [json.loads(line) for line in f if line.strip()]
+    except OSError:
+        return []
+
+
+# How long part (b) waits for each stage of the ride (the members' steps
+# in a generation, a resized-out member's exit).
+RESIZE_WAIT_S = 240.0
+
+
+def refederate_cards(count: int, card: str) -> dict:
+    """Part (b) of the elastic phase: member processes, one per card,
+    ride resizes n/2 -> n -> n/2 (n = 4 uses 2 -> 4 -> 2, n = 2 uses
+    1 -> 2 -> 1) at full width over NCCL, against :class:`SliceMaster`."""
+    small = max(1, min(count, 4) // 2)
+    large = 2 * small
+    root = os.path.join(ELASTIC_DIR, "federation")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free_before = shutil.disk_usage(root).free
+    names = [f"default/member-{i}" for i in range(large)]
+    master = SliceMaster("txn-chip-smoke", names[:small])
+    ctx = multiprocessing.get_context("spawn")
+    procs: dict[int, multiprocessing.Process] = {}
+    status = {i: os.path.join(root, f"member-{i}.jsonl")
+              for i in range(large)}
+    stop = os.path.join(root, "stop")
+
+    def spawn(i):
+        procs[i] = ctx.Process(target=federation_member, args=(
+            i, master.base, master.group, root, status[i], stop))
+        procs[i].start()
+
+    def steps(i, generation):
+        return [r for r in _records(status[i]) if r["phase"] == "step"
+                and r["generation"] == generation]
+
+    def wait_for(what, predicate):
+        deadline = time.monotonic() + RESIZE_WAIT_S
+        while not predicate():
+            dead = {i: p.exitcode for i, p in procs.items()
+                    if p.exitcode not in (None, 0)}
+            if dead:
+                raise RuntimeError(f"member(s) failed while waiting for "
+                                   f"{what}, exit codes {dead}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no {what} within {RESIZE_WAIT_S:.0f}s")
+            time.sleep(0.5)
+
+    try:
+        for i in range(small):
+            spawn(i)
+        wait_for("generation-1 steps", lambda: len(steps(0, 1)) >= 2)
+        master.resize(names)
+        for i in range(small, large):
+            spawn(i)
+        wait_for("generation-2 steps", lambda: len(steps(0, 2)) >= 2
+                 and len(steps(large - 1, 2)) >= 1)
+        master.resize(names[:small])
+        wait_for("generation-3 steps", lambda: len(steps(0, 3)) >= 2)
+        resized_out = {}
+        for i in range(small, large):
+            procs[i].join(timeout=RESIZE_WAIT_S)
+            resized_out[i] = procs[i].exitcode
+        with open(stop, "w") as f:
+            f.write("1")
+        for i in range(small):
+            procs[i].join(timeout=RESIZE_WAIT_S)
+        exits = {i: p.exitcode for i, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        master.close()
+
+    records = _records(status[0])
+    step_rows = [r for r in records if r["phase"] == "step"]
+    numbers = [r["step"] for r in step_rows]
+    worlds = {r["generation"]: r["world_devices"] for r in step_rows}
+    begins = [r for r in records if r["phase"] == "reshape_begin"]
+    dones = [r for r in records if r["phase"] == "reshape_done"]
+    transitions = []
+    for begin, done in zip(begins, dones):
+        first = next((r for r in step_rows
+                      if r["generation"] == done["generation"]), None)
+        transitions.append({
+            "generation": done["generation"],
+            "world": done["world_devices"],
+            "fingerprint_before": begin["fingerprint"],
+            "fingerprint_after": done["fingerprint"],
+            "downtime_s": (first["unix"] - begin["unix"]) if first else None,
+            "member0_timings_s": done.get("timings")})
+    losses = [r["loss"] for r in step_rows]
+    checks = {
+        "steps_strictly_increase": numbers == sorted(set(numbers))
+        and len(numbers) >= 6,
+        "worlds": worlds == {1: small, 2: large, 3: small},
+        "fingerprints_preserved": len(transitions) == 2 and all(
+            t["fingerprint_before"] == t["fingerprint_after"]
+            for t in transitions),
+        "loss_goes_down": len(losses) >= 4
+        and sum(losses[-2:]) < sum(losses[:2]),
+        "resized_out_exit_0": all(code == 0 for code in resized_out.values())
+        and all(any(r["phase"] == "resized_out" for r in _records(status[i]))
+                for i in resized_out),
+        "all_exit_0": all(code == 0 for code in exits.values())}
+    shutil.rmtree(root, ignore_errors=True)
+    return {"nvidia_smi": card, "resizes": [small, large, small],
+            "free_disk_bytes_before": free_before, "steps": numbers,
+            "losses": losses, "worlds": worlds, "transitions": transitions,
+            "exit_codes": exits, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -779,6 +1201,31 @@ def main() -> int:
                 "ok": bool(training["ok"] and replay["ok"] and ran
                            and ring_ok)}
 
+    def part(fn, *args) -> dict:
+        """One part of a phase; a failure is reported in the part and
+        fails the phase, and the other parts still run."""
+        try:
+            return fn(*args)
+        except Exception:
+            traceback.print_exc()
+            return {"ok": False, "error": traceback.format_exc()[-2000:]}
+
+    def elastic_phase():
+        one_card = part(drain_restore_one_card, kernels, card)
+        launches["elastic"] = one_card.get("launches", {})
+        torch.cuda.empty_cache()
+        legacy = part(legacy_cycle_toy)
+        count = torch.cuda.device_count()
+        if count > 1:
+            cards = part(refederate_cards, count, card)
+        else:
+            cards = {"degenerate": True, "ok": True,
+                     "reason": "re-federation over NCCL needs two or more "
+                               "cards; this machine has one"}
+        return {"n_devices": count, "one_card": one_card,
+                "legacy_cycle": legacy, "multi_card": cards,
+                "ok": bool(one_card["ok"] and legacy["ok"] and cards["ok"])}
+
     phase("environment", environment)
     if failed:             # nothing can run without the kernels and rates
         return 1
@@ -789,6 +1236,8 @@ def main() -> int:
     phase("long_context", long_context)
     torch.cuda.empty_cache()
     phase("parallel", parallel)
+    torch.cuda.empty_cache()
+    phase("elastic", elastic_phase)
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

@@ -9,6 +9,11 @@ weights run through both packages. The MoE and pipeline parameters are
 plain trees of tensors in both packages (``{"router", "w1", "w2"}``; a
 list of ``{"w1", "w2"}`` layers or their stacked form), which
 :func:`tensors_from_jax` carries across as they are.
+
+:func:`train_state_from_jax` carries a whole JAX ``TrainState`` (params,
+``optax.adamw`` state, step) into the port's :class:`~.train.TrainState`,
+so both packages can start from one point of a trajectory, moments
+included.
 """
 
 from __future__ import annotations
@@ -17,6 +22,10 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from gpumounter_tpu_torch.torchcheck import dist as dist_lib
+from gpumounter_tpu_torch.torchcheck import model as model_lib
+from gpumounter_tpu_torch.torchcheck import train as train_lib
 
 
 def _tensor(leaf) -> torch.Tensor:
@@ -73,3 +82,45 @@ def load_jax_params(model: torch.nn.Module,
                              f"port shape {tuple(own[name].shape)}")
     model.load_state_dict(state)
     return model
+
+
+def state_tree_from_jax(np_state) -> dict:
+    """A JAX ``TrainState(params, opt_state, step)`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) as the port's state tree
+    (``train`` module docstring), whole tensors on the CPU.
+
+    The JAX optimizer is ``optax.adamw`` (``jaxcheck/train.py:40-41``): a
+    chain whose first state is ``ScaleByAdamState(count, mu, nu)``. Its
+    ``mu`` and ``nu`` become torch AdamW's ``exp_avg`` and ``exp_avg_sq``,
+    and its one ``count`` every parameter's ``step``: both libraries bias-
+    correct with the count of updates taken so far plus one."""
+    adam = np_state.opt_state[0]
+    if not all(hasattr(adam, key) for key in ("count", "mu", "nu")):
+        raise ValueError(f"expected optax.adamw's state, whose first "
+                         f"element is ScaleByAdamState; got {type(adam)}")
+    params = params_from_jax(np_state.params)
+    mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+    count = float(np.asarray(adam.count))
+    return {"params": params,
+            "opt": {name: {"exp_avg": mu[name], "exp_avg_sq": nu[name],
+                           "step": torch.tensor(count)}
+                    for name in params},
+            "step": int(np.asarray(np_state.step))}
+
+
+def train_state_from_jax(np_state, cfg: model_lib.ModelConfig,
+                         device: str | torch.device = "cuda", mesh=None,
+                         lr: float = 3e-4) -> train_lib.TrainState:
+    """The JAX ``TrainState`` (numpy leaves) as the port's, on ``device``
+    with AdamW at ``lr``; with ``mesh`` every rank keeps its shard of the
+    parameters and of their moments (the Megatron split)."""
+    tree = state_tree_from_jax(np_state)
+    if mesh is not None:
+        specs = model_lib.param_shardings(cfg)
+        for name, spec in specs.items():
+            tree["params"][name] = dist_lib.shard(tree["params"][name],
+                                                  mesh, spec)
+            for key in ("exp_avg", "exp_avg_sq"):
+                tree["opt"][name][key] = dist_lib.shard(
+                    tree["opt"][name][key], mesh, spec)
+    return train_lib.state_from_tree(cfg, tree, device, lr)

@@ -14,7 +14,8 @@ its coordinate order). Dims past the end of a spec are replicated.
 
 The placement rule both packages share (``dist.py:5-10`` of the JAX
 package): every rank holds the same full host tensor, drawn from the same
-seed, and keeps only its own slice (:func:`shard`).
+seed, and keeps only its own slice (:func:`shard`, the port's
+``put_global``); :func:`placement` says where that slice lies.
 
 Inside a group, peers are named by their global ranks
 (``dist.get_global_rank``); a group of one moves nothing, so every
@@ -79,6 +80,32 @@ def shard_tree(tree: Any, mesh, specs: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(shard_tree(v, mesh, s) for v, s in zip(tree, specs))
     return shard(tree, mesh, specs)
+
+
+def placement(mesh, spec: Spec, shape: Sequence[int]
+              ) -> tuple[list[list[int]], bool]:
+    """Where this rank's :func:`shard` of a global array of ``shape``
+    lies under ``spec``: its global index ranges ``[[start, stop], ...]``
+    (one per dim), and whether this rank is replica 0, meaning coordinate
+    0 on every mesh dim ``spec`` does not name. Across a world the
+    replica-0 ranks' ranges tile the array exactly once — what JAX reads
+    from ``shard.index`` and ``shard.replica_id == 0``."""
+    ranges = []
+    for dim, n in enumerate(shape):
+        name = spec[dim] if dim < len(spec) else None
+        if name is None:
+            ranges.append([0, int(n)])
+            continue
+        size = axis_size(mesh, name)
+        if n % size:
+            raise ValueError(f"dim {dim} of shape {tuple(shape)} does not "
+                             f"divide over mesh dim {name!r} of size {size}")
+        start = axis_index(mesh, name) * (n // size)
+        ranges.append([start, start + n // size])
+    named = {name for name in spec if name is not None}
+    replica0 = all(axis_index(mesh, name) == 0
+                   for name in mesh.mesh_dim_names if name not in named)
+    return ranges, replica0
 
 
 def unshard(local: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:
@@ -312,9 +339,10 @@ def run_world(n: int, target: Callable, args: tuple = (),
 
     ``target`` must be importable by name (a module-level function); the
     processes are spawned, so they import what it needs afresh. Raises
-    RuntimeError with the tracebacks when a rank fails, TimeoutError when a
-    rank has not reported by the deadline; the processes are stopped
-    either way, so a hung collective never hangs the caller."""
+    RuntimeError with the tracebacks when a rank fails or exits without
+    reporting, TimeoutError when a rank has not reported by the deadline;
+    the processes are stopped either way, so a hung collective never hangs
+    the caller."""
     dev = resolve_device(device)
     if n < 1:
         raise ValueError(f"a world needs at least one process, got {n}")
@@ -345,8 +373,16 @@ def run_world(n: int, target: Callable, args: tuple = (),
             try:
                 rank, result, err = results.get(timeout=1.0)
             except queue.Empty:
-                if not any(p.is_alive() for p in procs) and results.empty():
-                    break
+                # a process gone without a report (killed, or a crash
+                # below Python) leaves its peers waiting for it in a
+                # rendezvous or a collective: fail now, not at the deadline
+                for r, p in enumerate(procs):
+                    if p.exitcode is not None and r not in got \
+                            and r not in errors and results.empty():
+                        errors[r] = (f"exited with code {p.exitcode} "
+                                     "before reporting")
+                        deadline = min(deadline,
+                                       time.monotonic() + FAILURE_GRACE_S)
                 continue
             if err is None:
                 got[rank] = result
@@ -359,6 +395,9 @@ def run_world(n: int, target: Callable, args: tuple = (),
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
+        # work a lost process never took must not hold this process at
+        # exit (the queue's feeder thread would wait on it)
+        inbox.cancel_join_thread()
     if errors:
         raise RuntimeError(
             f"{len(errors)} of {n} ranks failed:\n" + "\n".join(

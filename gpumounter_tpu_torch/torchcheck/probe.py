@@ -17,15 +17,27 @@ initialise CUDA before the attach has landed. Pinning the visible devices
 (``configure_visible_chips``) waits for the port's device model, which maps
 minors to GPU UUIDs.
 
+Multi-process bring-up (:func:`initialize_distributed`) joins this process
+to a ``torch.distributed`` world of one process per device, and
+:func:`shutdown_distributed` leaves it, so that an elastic resize can join
+a world of another size in the same process (``federation.py``). The
+probe's checks then run over that world, each process checking its own
+part.
+
 CLI:  python -m gpumounter_tpu_torch.torchcheck.probe --expect 4
       [--timeout 60] [--cpu-devices N]
+      [--coordinator HOST:PORT --num-processes N --process-id I]
       one JSON line; exit 0 iff the devices are there and validate, 1 when
       a check failed, 2 when the expected count was not reached in time.
+      With ``--coordinator`` this process is one rank of an N-process
+      world (NCCL; gloo with ``--cpu-devices 1``) and ``--expect`` counts
+      the world's devices.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import subprocess
 import sys
@@ -48,14 +60,84 @@ COLLECTIVE_TIMEOUT_S = 300.0
 def device_summary(device: str | torch.device = "cuda",
                    cpu_devices: int = 1) -> dict[str, Any]:
     """What this process sees: the CUDA devices, or ``cpu_devices``
-    worker processes' worth of CPU for ``device="cpu"``."""
+    worker processes' worth of CPU for ``device="cpu"``. In an initialised
+    world the count is the world's (one device per process)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         count = torch.cuda.device_count()
         names = [torch.cuda.get_device_name(i) for i in range(count)]
     else:
         count, names = cpu_devices, ["cpu"] * cpu_devices
-    return {"backend": dev.type, "device_count": count, "devices": names}
+    summary = {"backend": dev.type, "device_count": count, "devices": names}
+    if dist.is_initialized():
+        summary.update(device_count=dist.get_world_size(),
+                       process_index=dist.get_rank(),
+                       process_count=dist.get_world_size())
+    return summary
+
+
+def initialize_distributed(coordinator_address: str, num_processes: int,
+                           process_id: int,
+                           device: str | torch.device = "cuda"
+                           ) -> torch.device:
+    """Join this process to a ``torch.distributed`` world as rank
+    ``process_id`` of ``num_processes`` (counterpart of
+    ``jax.distributed.initialize``; torch has no slice auto-detection, so
+    all three are required). Rank 0 serves the rendezvous at
+    ``coordinator_address`` (``host:port``).
+
+    One process drives one device: NCCL with this rank on its device for
+    ``device="cuda"`` (``cuda:N`` names the card; without an index rank r
+    takes card r modulo the visible count; it becomes the current device,
+    where NCCL creates its communicators at their first collective), gloo
+    for ``device="cpu"`` — the counterpart of the JAX probe's
+    ``cpu_devices_per_process``. Returns the device this rank computes
+    on."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda",
+                               int(process_id) % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"tcp://{coordinator_address}",
+        world_size=int(num_processes), rank=int(process_id),
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    return dev
+
+
+def release_backend() -> None:
+    """Wait for the device and free PyTorch's cached device memory: the
+    port's single-process teardown between a drain and a restore. It
+    does NOT re-enumerate devices as ``jaxcheck/probe.py``'s
+    ``reinitialize_backend`` does — CUDA fixes a process's device set at
+    its first CUDA call, so a changed set of GPUs needs a new process
+    (module docstring). Tensors the caller still holds stay valid."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def shutdown_distributed() -> bool:
+    """Leave this process's ``torch.distributed`` world, so that a later
+    :func:`initialize_distributed` can join a NEW world of another size
+    and coordinator (the elastic re-federation step: drain → THIS →
+    barrier → initialize → restore resharded). Destroys every process
+    group, drops every ``DeviceMesh`` the mesh registry holds (each refers
+    to the groups just destroyed: build meshes anew after re-joining) and
+    releases the device (:func:`release_backend`). Returns whether there
+    was a world to leave."""
+    from torch.distributed import device_mesh
+    release_backend()
+    for value in vars(device_mesh._mesh_resources).values():
+        if isinstance(value, (dict, list)):
+            value.clear()
+    if not dist.is_initialized():
+        return False
+    dist.destroy_process_group()
+    release_backend()
+    return True
 
 
 def _child_device_count() -> int:
@@ -109,19 +191,28 @@ def validate_collectives(n_devices: int | None = None,
     integer results. One device is marked ``degenerate_single_device``:
     nothing then crossed a link."""
     dev = resolve_device(device)
-    n = n_devices or (torch.cuda.device_count() if dev.type == "cuda" else 1)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
     errors: list[str] = []
-    try:
-        got = dist_lib.run_world(n, _collective_check, device=dev,
-                                 timeout_s=COLLECTIVE_TIMEOUT_S)
-    except (RuntimeError, TimeoutError) as e:
-        got, errors = [], [str(e)[-2000:]]
+    if dist.is_initialized():
+        # one rank of a world joined by initialize_distributed: check this
+        # rank's part (every rank runs the same check)
+        n, rank = dist.get_world_size(), dist.get_rank()
+        backend = dist.get_backend()
+        got = {rank: _collective_check(_rank_device(dev))}
+    else:
+        n = n_devices or (torch.cuda.device_count() if dev.type == "cuda"
+                          else 1)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        try:
+            got = dict(enumerate(dist_lib.run_world(
+                n, _collective_check, device=dev,
+                timeout_s=COLLECTIVE_TIMEOUT_S)))
+        except (RuntimeError, TimeoutError) as e:
+            got, errors = {}, [str(e)[-2000:]]
     expected_total = n * (n - 1) // 2
-    allreduce_ok = (len(got) == n
-                    and all(t == expected_total for t, _ in got))
-    ring_ok = (len(got) == n
-               and all(got[r][1] == (r - 1) % n for r in range(n)))
+    allreduce_ok = bool(got) and all(t == expected_total
+                                     for t, _ in got.values())
+    ring_ok = bool(got) and all(received == (r - 1) % n
+                                for r, (_, received) in got.items())
     report = {"n_devices": n, "backend": backend,
               "allreduce_ok": bool(allreduce_ok), "ring_ok": bool(ring_ok),
               # a 1-device group moves no bytes between devices: "ok" then
@@ -131,6 +222,14 @@ def validate_collectives(n_devices: int | None = None,
     if errors:
         report["errors"] = errors
     return report
+
+
+def _rank_device(dev: torch.device) -> torch.device:
+    """This rank's device in an initialised world: the current CUDA
+    device (set by :func:`initialize_distributed`), or the CPU."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _train_mesh(device: torch.device, n_steps: int) -> dict[str, Any]:
@@ -178,6 +277,8 @@ def validate_training(n_steps: int = 4, device: str = "cuda",
     from gpumounter_tpu_torch.torchcheck import train as train_lib
 
     dev = resolve_device(device)
+    if dist.is_initialized():
+        return _train_mesh(_rank_device(dev), n_steps)
     if n_devices > 1:
         return dist_lib.run_world(n_devices, _train_mesh, (n_steps,),
                                   device=dev)[0]
@@ -192,7 +293,14 @@ def validate_training(n_steps: int = 4, device: str = "cuda",
 def run_probe(expected: int | None = None, timeout_s: float = 60.0,
               device: str = "cuda", cpu_devices: int = 1) -> dict[str, Any]:
     report: dict[str, Any] = {"ok": False}
-    if expected:
+    if dist.is_initialized():
+        # the world is fixed once joined: nothing to wait for
+        report["devices"] = device_summary(device, cpu_devices)
+        if expected and report["devices"]["device_count"] < expected:
+            raise TimeoutError(
+                f"expected {expected} devices, the world has "
+                f"{report['devices']['device_count']}")
+    elif expected:
         report["devices"] = wait_for_devices(expected, timeout_s,
                                              device=device,
                                              cpu_devices=cpu_devices)
@@ -220,15 +328,38 @@ def main(argv: list[str] | None = None) -> int:
                         help="wait until this many devices are visible")
     parser.add_argument("--timeout", type=float, default=60.0)
     parser.add_argument("--cpu-devices", type=int, default=None,
-                        help="hardware-free mode: N gloo CPU processes")
+                        help="hardware-free mode: N gloo CPU processes "
+                             "(1 with --coordinator: this rank on the CPU)")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="rank 0's rendezvous address; enables "
+                             "multi-process mode")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     args = parser.parse_args(argv)
+    distributed = args.coordinator is not None or args.process_id is not None
+    if args.num_processes is not None and not distributed:
+        parser.error("--num-processes requires --coordinator and "
+                     "--process-id")
+    if distributed:
+        if None in (args.coordinator, args.num_processes, args.process_id):
+            parser.error("multi-process mode needs --coordinator, "
+                         "--num-processes and --process-id")
+        if args.cpu_devices not in (None, 1):
+            parser.error("one device per process: --cpu-devices must be 1 "
+                         "with --coordinator")
     device = "cpu" if args.cpu_devices else "cuda"
+    if distributed:
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device)
     try:
         report = run_probe(args.expect, args.timeout, device=device,
                            cpu_devices=args.cpu_devices or 1)
     except TimeoutError as e:
         print(json.dumps({"ok": False, "error": str(e)}))
         return 2
+    finally:
+        if distributed:
+            shutdown_distributed()
     print(json.dumps(report))
     return 0 if report["ok"] else 1
 

@@ -11,6 +11,18 @@ shard's last position predicts the first token of the next shard), the
 gradients of every parameter are summed over ``data`` and ``seq`` (the
 model split's operators already make them whole over ``model``), and
 AdamW, elementwise, updates the local shards as it would the whole.
+
+The *state tree* (:func:`state_tree`, :func:`state_from_tree`) is the
+train state as plain data, what a checkpoint holds and what JAX's
+``TrainState`` pytree is to the JAX package::
+
+    {"params": {name: tensor},
+     "opt": {name: {"exp_avg": tensor, "exp_avg_sq": tensor, "step": tensor}},
+     "step": int}
+
+``name`` is the parameter's ``state_dict`` name; on a mesh each tensor is
+this rank's shard, and ``elastic.state_specs`` gives every leaf's spec
+(a moment has its parameter's, the AdamW step counters are replicated).
 """
 
 from __future__ import annotations
@@ -83,7 +95,8 @@ def _sum_over(tensors: list[torch.Tensor], groups) -> None:
 
 
 def init_state(cfg: ModelConfig, seed: int = 0,
-               device: str | torch.device = "cuda", mesh=None) -> TrainState:
+               device: str | torch.device = "cuda", mesh=None,
+               lr: float = 3e-4) -> TrainState:
     """Weights from ``seed``; with ``mesh``, every rank draws the same full
     weights and keeps its shard (:func:`~.model.shard_model`)."""
     device = resolve_device(device)
@@ -91,7 +104,54 @@ def init_state(cfg: ModelConfig, seed: int = 0,
     model = model_lib.Transformer(cfg, generator, device)
     if mesh is not None:
         model_lib.shard_model(model, mesh)
-    return TrainState(model, make_optimizer(model.parameters()))
+    return TrainState(model, make_optimizer(model.parameters(), lr))
+
+
+def state_tree(state: TrainState) -> dict:
+    """The state tree of ``state`` (module docstring). Its tensors are the
+    live ones (detached, not copied). Before AdamW's first step its state
+    is empty; the tree then holds zero moments and step 0, which is what
+    AdamW starts from (as optax's ``init`` state is)."""
+    opt = {}
+    for name, param in state.model.named_parameters():
+        saved = state.optimizer.state.get(param, {})
+        opt[name] = {
+            "exp_avg": saved.get("exp_avg", torch.zeros_like(param)),
+            "exp_avg_sq": saved.get("exp_avg_sq", torch.zeros_like(param)),
+            "step": saved.get("step", torch.tensor(0.0))}
+    return {"params": {name: p.detach()
+                       for name, p in state.model.named_parameters()},
+            "opt": opt, "step": int(state.step)}
+
+
+def state_from_tree(cfg: ModelConfig, tree: dict,
+                    device: str | torch.device = "cuda",
+                    lr: float = 3e-4) -> TrainState:
+    """A fresh :class:`TrainState` holding ``tree``'s values: the model's
+    parameters, AdamW's moments and per-parameter step (so bias
+    correction continues where it was), and the step counter. Each
+    tensor must already be this rank's shard (``drain.restore_sharded``
+    places them); the moments land on ``device`` in their parameter's
+    dtype, the AdamW steps as float32 on the CPU, as AdamW keeps them."""
+    device = resolve_device(device)
+    # the structure only (no weights drawn); every parameter is replaced
+    # by its value in the tree, which may be a shard
+    model = model_lib.Transformer(cfg, torch.Generator(), "meta")
+    for name, _ in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        value = tree["params"][name].detach()
+        setattr(model.get_submodule(owner), leaf, torch.nn.Parameter(
+            value.to(device=device, dtype=cfg.dtype).clone()))
+    optimizer = make_optimizer(model.parameters(), lr)
+    for name, param in model.named_parameters():
+        moments = tree["opt"][name]
+        optimizer.state[param] = {
+            "step": torch.tensor(float(moments["step"]),
+                                 dtype=torch.float32),
+            **{key: moments[key].detach().to(
+                device=device, dtype=param.dtype).clone()
+               for key in ("exp_avg", "exp_avg_sq")}}
+    return TrainState(model, optimizer, int(tree["step"]))
 
 
 def make_train_step(cfg: ModelConfig, mesh=None,

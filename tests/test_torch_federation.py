@@ -1,0 +1,256 @@
+"""The port's re-federation member side (``torchcheck/federation.py``),
+in process, against the JAX package's master.
+
+The barrier protocol lives in the control plane (``master/slicetxn.py``);
+a live ``MultiNodeStack`` of the JAX package serves it here, and the
+port's ``BarrierClient`` meets the same typed refusals as the JAX
+client does (``tests/test_federation.py``). The crash between a sharded
+drain and its restore resumes from the checkpoint. The subprocess e2es
+are in ``tests/test_torch_federation_e2e.py``.
+"""
+
+import json
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from gpumounter_tpu.jaxcheck import federation as jfed
+from gpumounter_tpu.testing.chaos import (assert_checkpoint_invariants,
+                                          assert_slice_invariants)
+from gpumounter_tpu.utils import consts as jconsts
+from gpumounter_tpu.utils.config import HostPaths
+from gpumounter_tpu_torch.torchcheck import dist as tdist
+from gpumounter_tpu_torch.torchcheck import federation as fed
+from gpumounter_tpu_torch.torchcheck import model as tmodel
+from gpumounter_tpu_torch.torchcheck import probe
+from gpumounter_tpu_torch.utils import consts
+
+import torch_worlds
+
+CFG = tmodel.ModelConfig(vocab=64, d_model=32, n_heads=4, n_layers=1,
+                         d_ff=64)
+
+
+def _host(tmp_path, i):
+    base = tmp_path / f"node{i}"
+    for sub in ("dev", "proc", "sys/fs/cgroup"):
+        (base / sub).mkdir(parents=True)
+    return HostPaths(dev_root=str(base / "dev"),
+                     proc_root=str(base / "proc"),
+                     sys_root=str(base / "sys"),
+                     cgroup_root=str(base / "sys" / "fs" / "cgroup"),
+                     kubelet_socket=str(base / "pr" / "kubelet.sock"))
+
+
+def _post(url, obj):
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(),
+                                 method="POST")
+    try:
+        resp = urllib.request.urlopen(req, timeout=60)
+        return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _target(n, tpus=1):
+    return {"pods": [{"namespace": "default", "pod": f"workload-{i}"}
+                     for i in range(n)], "tpusPerHost": tpus}
+
+
+def _stack(tmp_path, hosts=2):
+    from gpumounter_tpu.testing.sim import MultiNodeStack
+    return MultiNodeStack([_host(tmp_path, i) for i in range(hosts)],
+                          n_chips=2)
+
+
+def test_constants_match_the_control_plane():
+    from gpumounter_tpu.jaxcheck import drain as jdrain
+    assert consts.DEFAULT_RESIZE_BARRIER_TIMEOUT_S == \
+        jconsts.DEFAULT_RESIZE_BARRIER_TIMEOUT_S == \
+        fed.DEFAULT_BARRIER_TIMEOUT_S
+    assert consts.SHARDED_FORMAT == jdrain.SHARDED_FORMAT
+
+
+def test_barrier_client_typed_refusals(tmp_path):
+    stack = _stack(tmp_path, hosts=2)
+    try:
+        _, body = _post(f"{stack.base}/addtpuslice", _target(2))
+        group = body["group"]
+        client = fed.BarrierClient(stack.base, group, "default/workload-0")
+        out = client.join(1, "127.0.0.1:4000")
+        assert out["complete"] is False
+        _, body = _post(f"{stack.base}/slice/resize", {
+            "pods": [{"namespace": "default", "pod": "workload-0"}]})
+        assert body["generation"] == 2
+        with pytest.raises(fed.StaleGenerationError) as info:
+            client.join(1, "127.0.0.1:4000")
+        assert info.value.current == 2
+        other = fed.BarrierClient(stack.base, group, "default/workload-1")
+        with pytest.raises(fed.MembershipRefusedError):
+            other.join(2, "127.0.0.1:5000")
+        with pytest.raises(fed.UnknownGenerationError):
+            client.join(9, "127.0.0.1:4000")
+        with pytest.raises(fed.StaleGenerationError):
+            client.wait(1, timeout_s=1.0)
+        with pytest.raises(fed.BarrierTimeoutError):
+            client.wait(2, timeout_s=0.3)
+        # completing the barrier hands back the plan both clients read
+        plan = client.join(2, "127.0.0.1:4001")["plan"]
+        assert plan == {"coordinator": "127.0.0.1:4001",
+                        "num_processes": 1,
+                        "members": ["default/workload-0"]}
+        assert client.wait(2, timeout_s=1.0) == plan
+        assert jfed.BarrierClient(stack.base, group,
+                                  "default/workload-0").wait(
+            2, timeout_s=1.0) == plan
+    finally:
+        stack.close()
+
+
+def test_teardown_retires_the_barrier(tmp_path):
+    stack = _stack(tmp_path, hosts=2)
+    try:
+        _, body = _post(f"{stack.base}/addtpuslice", _target(2))
+        group = body["group"]
+        _post(f"{stack.base}/removetpuslice", _target(2))
+        stack.gateway.slices.export_gauges()
+        client = fed.BarrierClient(stack.base, group, "default/workload-0")
+        with pytest.raises(fed.MembershipRefusedError):
+            client.join(1, "127.0.0.1:4000")
+        assert client.status() is None
+        assert_slice_invariants(stack.gateway.broker,
+                                [r.sim for r in stack.rigs],
+                                kube=stack.master_kube)
+    finally:
+        stack.close()
+
+
+def test_master_slice_signal_reads_the_group(tmp_path):
+    from gpumounter_tpu_torch.torchcheck import elastic
+    stack = _stack(tmp_path, hosts=2)
+    try:
+        _, body = _post(f"{stack.base}/addtpuslice", _target(2))
+        signal = elastic.MasterSliceSignal(stack.base, body["group"])
+        assert signal.generation() == 1 and signal.chips() == 2
+        assert elastic.MasterSliceSignal(stack.base, "txn-nope") \
+            .generation() is None
+    finally:
+        stack.close()
+
+
+# -- one process ------------------------------------------------------------------
+
+def _batch(step):
+    generator = torch.Generator().manual_seed(7_000_003 + step)
+    from gpumounter_tpu_torch.torchcheck import train
+    return train.make_batch(generator, 4, 16, CFG.vocab)
+
+
+def test_single_process_crash_between_drain_and_restore_resumes(tmp_path):
+    """The sole-surviving-copy scenario: a harness crashes after its
+    sharded drain committed but before restore. The next boot
+    (start(resume=True), the member's resume path) restores the
+    checkpoint instead of resetting the trajectory."""
+    root = str(tmp_path / "ckpt")
+    signal = {"gen": 1, "chips": 1}
+
+    def harness():
+        return fed.FederatedElasticHarness(
+            CFG, lambda: signal["gen"], lambda: signal["chips"],
+            refederator=fed.Refederator(None, device="cpu"),
+            checkpoint_root=root, lr=1e-2)
+
+    first = harness()
+    first.refederator.refederate(1)           # a world of one
+    try:
+        first.start()
+        for step in range(5):
+            first.train_step(_batch(step))
+        assert first.state.step == 5
+        embed = first.state.model.embed.detach().clone()
+        # drain for the (never-completed) transition to generation 2 —
+        # then "crash": the checkpoint is the sole surviving copy
+        first._drain(2)
+        assert_checkpoint_invariants(root)
+        reborn = harness()
+        reborn._target_generation = 2
+        reborn.start(resume=True)
+        assert reborn.state.step == 5
+        assert torch.equal(reborn.state.model.embed, embed)
+        assert reborn.restored_generation == 2
+        assert reborn.rolled_back is False
+        # a start WITHOUT resume still inits fresh
+        assert harness().start().state.step == 0
+    finally:
+        probe.shutdown_distributed()
+
+
+def test_restore_rolls_back_to_last_good_on_a_wrong_generation(tmp_path):
+    root = str(tmp_path / "ckpt")
+    refederator = fed.Refederator(None, device="cpu")
+    harness = fed.FederatedElasticHarness(
+        CFG, lambda: 1, lambda: 1, refederator=refederator,
+        checkpoint_root=root, lr=1e-2)
+    refederator.refederate(1)
+    try:
+        harness.start()
+        harness.train_step(_batch(0))
+        harness._drain(1)
+        harness._target_generation = 3      # the world moved past gen 1
+        tree = harness._restore(fed.elastic_lib.state_specs(CFG))
+        assert harness.rolled_back is True
+        assert harness.restored_generation == 1
+        assert int(tree["step"]) == 1
+    finally:
+        probe.shutdown_distributed()
+
+
+def test_single_process_refederation_joins_a_fresh_world_of_one():
+    refederator = fed.Refederator(None, device="cpu")
+    try:
+        assert refederator.refederate(1) is None
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        first = dist.distributed_c10d._get_default_store()
+        assert refederator.refederate(2) is None
+        assert dist.get_world_size() == 1
+        assert dist.distributed_c10d._get_default_store() is not first
+        assert refederator.federated
+    finally:
+        assert probe.shutdown_distributed() is True
+    assert not dist.is_initialized()
+    assert probe.shutdown_distributed() is False
+
+
+def test_world_agreement_takes_the_minimum():
+    got = tdist.run_world(3, torch_worlds.agreement_world, ([5, 3, 9],),
+                          device="cpu", timeout_s=120)
+    assert got == [3, 3, 3]
+    assert fed.WorldAgreement().agree(4) == 4      # no world: identity
+
+
+def test_a_member_drives_exactly_one_device():
+    with pytest.raises(ValueError, match="one device"):
+        fed.MemberRunner("http://127.0.0.1:1", "g", "default/p", "/tmp/x",
+                         local_devices=2, device="cpu")
+    with pytest.raises(SystemExit) as info:
+        fed.main(["--master", "http://127.0.0.1:1", "--group", "g",
+                  "--member", "default/p", "--checkpoint-root", "/tmp/x",
+                  "--local-devices", "2", "--device", "cpu"])
+    assert info.value.code == 2
+    assert fed.configure_cpu_world(1) == torch.device("cpu")
+
+
+def test_member_gives_up_when_the_slice_never_appears(tmp_path):
+    status = tmp_path / "status.jsonl"
+    runner = fed.MemberRunner(f"http://127.0.0.1:{fed.free_port()}", "g",
+                              "default/p", str(tmp_path / "ckpt"),
+                              device="cpu", status_path=str(status),
+                              barrier_timeout_s=0.3)
+    assert runner.run() == 2
+    records = [json.loads(line) for line in status.read_text().splitlines()]
+    assert records[-1]["phase"] == "error"
+    assert "never appeared" in records[-1]["message"]
+    assert np.isfinite(records[-1]["unix"])

@@ -57,14 +57,15 @@ def test_no_forbidden_module_loaded_at_run_time():
 
 
 def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
-    """The entry points of the parallel schemes default to the GPU and
+    """The entry points of the parallel schemes, the distributed bring-up,
+    the elastic harness and the federation member default to the GPU and
     never fall back to the CPU (``device="cpu"`` runs them in gloo
     worlds: tests/test_torch_parallel.py, test_torch_moe_pipeline.py)."""
     import torch
 
     from gpumounter_tpu_torch import entry
     from gpumounter_tpu_torch.torchcheck import dist, model, moe, pipeline
-    from gpumounter_tpu_torch.torchcheck import probe
+    from gpumounter_tpu_torch.torchcheck import elastic, federation, probe
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -75,6 +76,14 @@ def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
         "init_moe_params": lambda: moe.init_moe_params(moe.MoEConfig()),
         "make_mlp_layers": lambda: pipeline.make_mlp_layers(2, 8),
         "validate_training": lambda: probe.validate_training(n_devices=2),
+        "initialize_distributed": lambda: probe.initialize_distributed(
+            "127.0.0.1:1", 1, 0),
+        "elastic_harness": lambda: elastic.ElasticHarness(
+            model.ModelConfig(), lambda: 1, lambda: 1,
+            checkpoint_path="/nonexistent/never-written"),
+        "refederator": lambda: federation.Refederator(None),
+        "member": lambda: federation.MemberRunner(
+            "http://127.0.0.1:1", "g", "default/p", "/nonexistent"),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -79,6 +79,58 @@ def test_cli_exit_codes():
         timeout.stdout.strip().splitlines()[-1])["error"]
 
 
+def test_cli_joins_a_world_of_two_processes():
+    """``--coordinator``/``--num-processes``/``--process-id``: each process
+    is one rank of a gloo world and checks its own part over it."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "gpumounter_tpu_torch.torchcheck.probe",
+         "--cpu-devices", "1", "--expect", "2",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(rank)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=REPO, env=env)
+        for rank in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, err[-2000:]
+        report = json.loads(out.strip().splitlines()[-1])
+        assert report["devices"]["process_index"] == rank
+        assert report["devices"]["device_count"] == 2
+        assert report["collectives"]["backend"] == "gloo"
+        assert report["collectives"]["allreduce_ok"]
+        assert report["training"]["mesh"] == {"data": 1, "seq": 2,
+                                              "model": 1}
+
+
+@pytest.mark.parametrize("args", [
+    ["--num-processes", "2"],
+    ["--coordinator", "127.0.0.1:1", "--process-id", "0"],
+    ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+     "--process-id", "0", "--cpu-devices", "2"],
+], ids=["count_alone", "count_missing", "two_devices_a_process"])
+def test_cli_refuses_an_incomplete_world(args):
+    proc = _cli(*args)
+    assert proc.returncode == 2 and "error:" in proc.stderr
+
+
+def test_a_rank_that_vanishes_fails_the_world_fast():
+    """A process gone without a report fails the world at once with its
+    exit code, instead of leaving its peers blocked until the deadline."""
+    import time
+
+    import torch_worlds
+    from gpumounter_tpu_torch.torchcheck import dist as dist_lib
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1:\nexited with code 3"):
+        dist_lib.run_world(3, torch_worlds.vanishing_world, device="cpu",
+                           timeout_s=120)
+    assert time.monotonic() - t0 < 60
+
+
 @pytest.mark.gpu
 def test_run_probe_on_gpu():
     if not torch.cuda.is_available():

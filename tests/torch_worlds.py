@@ -17,6 +17,9 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from gpumounter_tpu_torch.torchcheck import convert
 from gpumounter_tpu_torch.torchcheck import dist as dist_lib
+from gpumounter_tpu_torch.torchcheck import drain as tdrain
+from gpumounter_tpu_torch.torchcheck import elastic as telastic
+from gpumounter_tpu_torch.torchcheck import federation as tfed
 from gpumounter_tpu_torch.torchcheck import model as tmodel
 from gpumounter_tpu_torch.torchcheck import moe as tmoe
 from gpumounter_tpu_torch.torchcheck import pipeline as tpipe
@@ -163,3 +166,139 @@ def moe_pipeline_world(device, inp: dict, moe_fields: dict) -> dict:
             losses.append(float(loss))
         res[key]["losses"] = losses
     return res
+
+
+def _whole_tree(tree, specs, mesh) -> dict:
+    """A state tree of this rank's shards as whole numpy arrays. No
+    tensor may go back to the parent: torch sends a tensor through a
+    queue as a handle to this process's memory, which is gone once the
+    process exits."""
+    def whole(leaf, spec):
+        if spec is not None:
+            leaf = dist_lib.unshard(leaf, mesh, spec)
+        return _np(leaf) if isinstance(leaf, torch.Tensor) else leaf
+    return tdrain._map(whole, tree, specs)
+
+
+def drain_state_world(device, root: str, cfg_fields: dict,
+                      tokens: np.ndarray) -> dict:
+    """A train state on the Megatron split of the world (model = world
+    size), two steps, then ``drain_sharded`` generation 1 with the
+    world's barrier. Returns the drained tree, whole."""
+    cfg = tmodel.ModelConfig(**cfg_fields)
+    mesh = tmodel.make_mesh(data=1, seq=1, model=dist.get_world_size(),
+                            device=device)
+    state = ttrain.init_state(cfg, seed=0, device=device, mesh=mesh, lr=1e-2)
+    step = ttrain.make_train_step(cfg, mesh)
+    local = dist_lib.shard(torch.from_numpy(tokens).long(), mesh,
+                           ("data", "seq"))
+    for _ in range(2):
+        state, _ = step(state, local)
+    specs = telastic.state_specs(cfg)
+    tree = ttrain.state_tree(state)
+    tdrain.drain_sharded(tree, root, 1, specs=specs, mesh=mesh,
+                         sync_fn=dist.barrier)
+    return _whole_tree(tree, specs, mesh)
+
+
+def restore_state_world(device, root: str, cfg_fields: dict,
+                        dims: dict) -> dict:
+    """``restore_sharded`` onto a (data, seq, model) = ``dims`` mesh of
+    the world. Returns the restored tree, whole, and whether each rank's
+    tensors are exactly its slices of it."""
+    cfg = tmodel.ModelConfig(**cfg_fields)
+    mesh = tmodel.make_mesh(**dims, device=device)
+    specs = telastic.state_specs(cfg)
+    tree = tdrain.restore_sharded(root, specs, mesh=mesh, device=device,
+                                  expect_generation=1)
+    whole = _whole_tree(tree, specs, mesh)
+    own = tdrain._map(
+        lambda leaf, full, spec: spec is None or torch.equal(
+            leaf, dist_lib.shard(torch.from_numpy(full), mesh, spec)),
+        tree, whole, specs)
+    state = ttrain.state_from_tree(cfg, tree, device, lr=1e-2)
+    return {"tree": whole, "own_slices": all(tdrain._leaves(own)),
+            "step": state.step}
+
+
+def elastic_world(device, root: str, cfg_fields: dict,
+                  batches: list) -> dict:
+    """One world of the elastic ride: the federated harness resumes the
+    committed checkpoint over a (1, world, 1) mesh, takes a step per
+    batch, and drains the next generation with the world's barrier."""
+    cfg = tmodel.ModelConfig(**cfg_fields)
+    world = dist.get_world_size()
+    generation = tdrain.latest_generation(root)
+    harness = tfed.FederatedElasticHarness(
+        cfg, lambda: generation, lambda: world,
+        refederator=tfed.Refederator(None, device=device),
+        checkpoint_root=root, lr=1e-2).start(resume=True)
+    start = {"step": harness.state.step,
+             "embed": _np(harness.state.model.embed).copy(),
+             "restored_generation": harness.restored_generation}
+    losses = [harness.train_step(tokens) for tokens in batches]
+    end = {"step": harness.state.step,
+           "embed": _np(harness.state.model.embed).copy()}
+    harness._drain(generation + 1)
+    return {"start": start, "end": end, "losses": losses,
+            "mesh": dict(zip(harness.mesh.mesh_dim_names,
+                             harness.mesh.shape))}
+
+
+# A state-shaped tree on a 1-D mesh "x" (the JAX drain tests' tree): a
+# matrix sharded over x, a replicated vector, a host step counter.
+X_SPECS = {"matrix": ("x", None), "replicated": (), "step": None}
+
+
+def _x_mesh():
+    return init_device_mesh("cpu", (dist.get_world_size(),),
+                            mesh_dim_names=("x",))
+
+
+def x_drain_world(device, root: str, generation: int) -> None:
+    mesh = _x_mesh()
+    matrix = torch.arange(32, dtype=torch.float32).reshape(8, 4)
+    tree = {"matrix": dist_lib.shard(matrix, mesh, X_SPECS["matrix"]),
+            "replicated": torch.ones(3), "step": 7}
+    tdrain.drain_sharded(tree, root, generation, specs=X_SPECS, mesh=mesh,
+                         sync_fn=dist.barrier)
+
+
+def x_restore_world(device, root: str) -> dict:
+    mesh = _x_mesh()
+    tree = tdrain.restore_sharded(root, X_SPECS, mesh=mesh, device=device,
+                                  expect_generation=1)
+    return {"matrix": _np(dist_lib.unshard(tree["matrix"], mesh,
+                                           X_SPECS["matrix"])),
+            "local_shape": tuple(tree["matrix"].shape),
+            "replicated": _np(tree["replicated"]),
+            "step": int(tree["step"])}
+
+
+def legacy_restore_world(device, path: str, cfg_fields: dict,
+                         dims: dict) -> dict:
+    """The legacy single-file params checkpoint restored onto a
+    (data, seq, model) = ``dims`` mesh of the world: each rank's slices,
+    gathered whole."""
+    cfg = tmodel.ModelConfig(**cfg_fields)
+    mesh = tmodel.make_mesh(**dims, device=device)
+    specs = tmodel.param_shardings(cfg)
+    params = tdrain.restore(path, specs, mesh=mesh, device=device)
+    return {"params": _whole_tree(params, specs, mesh),
+            "local_wqkv": tuple(params["layers.0.wqkv"].shape)}
+
+
+def agreement_world(device, values: list) -> int:
+    """Each rank contributes ``values[rank]`` to the world's agreement."""
+    return tfed.WorldAgreement().agree(values[dist.get_rank()])
+
+
+def vanishing_world(device) -> int:
+    """Rank 1 leaves without a word (as a killed process does); the
+    others wait for it in a collective."""
+    import os
+    if dist.get_rank() == 1:
+        os._exit(3)
+    x = torch.ones(1)
+    dist.all_reduce(x)
+    return int(x.item())
