@@ -1072,6 +1072,136 @@ def refederate_cards(count: int, card: str) -> dict:
             "ok": all(checks.values())}
 
 
+# The selftest's own limit: its nine checks take a few minutes on one H100.
+SELFTEST_TIMEOUT_S = 600.0
+
+
+def selftest_headline(name: str, r: dict) -> dict:
+    """The numbers of one selftest check worth a line of their own."""
+    head = {"ok": r.get("ok"), "seconds": r.get("seconds")}
+    if "error" in r:
+        return {**head, "error": r["error"]}
+    if name == "collectives":
+        head.update(n_devices=r.get("n_devices"),
+                    degenerate=r.get("degenerate_single_device"))
+    elif name == "training":
+        head.update(step_ms=r.get("step_ms"), first_loss=r.get("first_loss"),
+                    final_loss=r.get("final_loss"))
+    elif name == "perf":
+        head.update(
+            primary={k: r.get(k) for k in ("train_step_ms", "mfu")},
+            full_attention={k: r.get("xla_attention", {}).get(k)
+                            for k in ("train_step_ms", "mfu", "error")},
+            tuned={k: r.get("tuned", {}).get(k)
+                   for k in ("train_step_ms", "mfu", "error")})
+    elif name == "pallas_parity":
+        head.update({k: r.get(k) for k in (
+            "err_pallas_vs_oracle", "err_einsum_vs_oracle",
+            "err_pallas_vs_einsum", "tol")})
+    elif name == "attention_kernels":
+        head["rows"] = r.get("rows")
+    elif name == "long_context":
+        head["flash"] = [{"seq": row["seq"], "batch": row["batch"],
+                          **{k: row["flash"].get(k) for k in (
+                              "train_step_ms", "mfu", "ok", "error")}}
+                         for row in r.get("rows", [])]
+        head["full_attention"] = r.get("xla_full_attention")
+    elif name == "roofline":
+        head.update({k: r.get(k) for k in (
+            "measured_step_ms", "measured_mfu", "matmul_pred_ms",
+            "matmul_ceiling_mfu", "identity_step_ms", "attention_core_ms",
+            "optimizer_ms", "remainder_ms", "explained_fraction")})
+        head["gemm_eff"] = {g: v.get("eff") for g, v in
+                            r.get("gemms", {}).items()}
+    elif name == "drain_cycle":
+        head.update(abs_err=r.get("abs_err"),
+                    drain_restore_s=r.get("drain_restore_s"))
+    elif name == "backend_reinit":
+        head.update(cycles=r.get("cycles"),
+                    reinit_s_per_cycle=r.get("reinit_s_per_cycle"),
+                    devices_reenumerated=r.get("devices_reenumerated"))
+    return head
+
+
+def device_layer(probe) -> dict:
+    """The device layer on this machine's real /dev and /proc, held
+    against nvidia-smi by UUID and PCI address."""
+    from gpumounter_tpu_torch.device import enumerator as en
+    from gpumounter_tpu_torch.device import native_enumerator as ne
+    from gpumounter_tpu_torch.utils import consts
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    build = subprocess.run(
+        ["make", "-C", os.path.join(REPO, "gpumounter_tpu_torch", "native")],
+        capture_output=True, text=True, timeout=300)
+    if build.returncode != 0:
+        return {"native_build": build.stdout[-1000:] + build.stderr[-1000:],
+                "ok": False}
+    host = HostPaths()
+    py, native = en.PyEnumerator(host), ne.NativeEnumerator(host)
+    found = {"python": py.enumerate(), "native": native.enumerate()}
+
+    def shape(devices):
+        return [(d.index, d.device_path, d.major, d.minor, d.uuid,
+                 d.pci_address, [(c.host_path, c.major, c.minor)
+                                 for c in d.companions]) for d in devices]
+
+    smi = []
+    for line in nvidia_smi("index,uuid,pci.bus_id").splitlines():
+        index, uuid, bus = (x.strip() for x in line.split(","))
+        # a machine may hide the card's PCI address: nvidia-smi then says
+        # "[N/A]", and the node must carry none either ("")
+        known = bool(bus) and not bus.startswith("[")
+        smi.append({"index": int(index), "uuid": uuid,
+                    "pci": en.normalize_pci_address(bus) if known else ""})
+    by_uuid = {d.uuid: d for d in found["python"] if d.uuid}
+    majors = en.read_proc_devices(host.proc_root)
+    pid = os.getpid()
+    cards = []
+    for card in smi:
+        dev = by_uuid.get(card["uuid"])
+        row = {**card, "node": dev.device_path if dev else None}
+        if dev is not None:
+            row.update(
+                major=dev.major, minor=dev.minor, node_pci=dev.pci_address,
+                major_195=dev.major == consts.NVIDIA_MAJOR,
+                pci_equal=dev.pci_address == card["pci"],
+                busy_python=py.device_open_pids([pid], [dev.device_path]),
+                busy_native=native.device_open_pids([pid],
+                                                    [dev.device_path]))
+            row["own_pid_busy"] = (row["busy_python"] == [pid]
+                                   == row["busy_native"])
+        cards.append(row)
+    companions = {os.path.basename(c.host_path): (c.major, c.minor)
+                  for c in (found["python"][0].companions
+                            if found["python"] else ())}
+    uvm = majors.get(consts.NVIDIA_UVM_PROC_DEVICES_NAME)
+    pin = probe.configure_visible_chips(env={})
+    by_minor = sorted((by_uuid[c["uuid"]].minor, c["uuid"]) for c in smi
+                      if c["uuid"] in by_uuid)
+    checks = {
+        "python_equals_native": shape(found["python"])
+        == shape(found["native"]),
+        "uuid_source_equal": py.uuid_source == native.uuid_source,
+        "every_card_matched": bool(smi) and all(c["node"] for c in cards),
+        "major_195": all(c.get("major_195") for c in cards),
+        "pci_equal": all(c.get("pci_equal") for c in cards),
+        "own_pid_busy": all(c.get("own_pid_busy") for c in cards),
+        "nvidiactl": companions.get(consts.NVIDIA_CTL_NAME)
+        == (consts.NVIDIA_MAJOR, consts.NVIDIA_CTL_MINOR),
+        "nvidia_uvm_major": uvm is not None
+        and companions.get(consts.NVIDIA_UVM_NAME, (None,))[0] == uvm,
+        "pin_is_the_cards": pin == ",".join(u for _, u in by_minor)}
+    return {"uuid_source": py.uuid_source, "nvidia_smi": smi,
+            "pci_known": all(c["pci"] for c in smi),
+            "nodes": shape(found["python"]), "cards": cards,
+            "companions": companions,
+            "proc_devices": {k: v for k, v in majors.items()
+                             if k.startswith("nvidia")},
+            "configure_visible_chips": pin, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1085,6 +1215,7 @@ def definition_line(src: str, func: str) -> int | None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1145,7 +1276,17 @@ def main() -> int:
                 "ok": small["ok"] and main_path["ok"]}
 
     def probe_phase():
-        report = probe.run_probe(device="cuda")
+        # run_probe pins CUDA_VISIBLE_DEVICES (for this process's children);
+        # the later phases keep the environment they started with, and the
+        # pin itself is held against nvidia-smi in phase device_layer
+        before = os.environ.get("CUDA_VISIBLE_DEVICES")
+        try:
+            report = probe.run_probe(device="cuda")
+        finally:
+            if before is None:
+                os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = before
         return {"report": report, "ok": report["ok"]}
 
     def flagship():
@@ -1162,7 +1303,14 @@ def main() -> int:
                 "ok": bool(report["ok"] and ran)}
 
     def long_context():
-        report, counts = run_path(kernels, perf.measure_long_context)
+        # the seq-4096 row alone (the selftest runs all three rows)
+        def row(profile):
+            r = perf.measure_long_context_row(4096, 2, profile=profile)
+            return {"config": r["config"], "rows": [
+                {"seq": 4096, "batch": 2, "tokens_per_step": 8192,
+                 "flash": r}], "ok": r["ok"]}
+
+        report, counts = run_path(kernels, row)
         launches["long_context"] = counts
         ran = all(counts[n] > 0 for n in ("flash_fwd_kblocked",
                                           "flash_bwd_dq", "flash_bwd_dkdv"))
@@ -1226,6 +1374,21 @@ def main() -> int:
                 "legacy_cycle": legacy, "multi_card": cards,
                 "ok": bool(one_card["ok"] and legacy["ok"] and cards["ok"])}
 
+    def selftest():
+        from gpumounter_tpu_torch.torchcheck import gpu_selftest
+        torch.cuda.empty_cache()
+        rc, report, error = gpu_selftest.run_in_subprocess(
+            timeout=SELFTEST_TIMEOUT_S)
+        if report is None:
+            return {"rc": rc, "error": error, "ok": False}
+        for name in gpu_selftest.CHECKS:
+            emit("selftest_check", check=name,
+                 **selftest_headline(name, report.get(name, {})))
+        return {"rc": rc, "nvidia_smi": card, "report": report,
+                "checks_ok": {n: report.get(n, {}).get("ok")
+                              for n in gpu_selftest.CHECKS},
+                "ok": bool(rc == 0 and report["ok"])}
+
     phase("environment", environment)
     if failed:             # nothing can run without the kernels and rates
         return 1
@@ -1238,6 +1401,9 @@ def main() -> int:
     phase("parallel", parallel)
     torch.cuda.empty_cache()
     phase("elastic", elastic_phase)
+    torch.cuda.empty_cache()
+    phase("selftest", selftest)
+    phase("device_layer", lambda: device_layer(probe))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")
@@ -1274,6 +1440,8 @@ def main() -> int:
                 "library_ms", "shape", "dtype")},
             **({"unit": row["unit"]} if "unit" in row else {})})
     print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"total_seconds": time.perf_counter() - t_start}),
+          flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

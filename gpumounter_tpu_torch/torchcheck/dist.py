@@ -25,10 +25,12 @@ collective here returns its input unchanged for it.
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import multiprocessing
 import os
 import queue
-import socket
+import shutil
+import tempfile
 import time
 import traceback
 from typing import Any, Callable, Sequence
@@ -299,15 +301,16 @@ def exclusive_scan(x: torch.Tensor, group) -> tuple[torch.Tensor,
 
 # -- worlds of processes --------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# A rank still running this long before its world's deadline dumps every
+# thread's stack to stderr, so a stuck rank names where it waits.
+STACK_DUMP_LEAD_S = 10.0
 
 
-def _world_main(rank: int, world: int, port: int, backend: str,
+def _world_main(rank: int, world: int, rendezvous: str, backend: str,
                 timeout_s: float, inbox, results) -> None:
     """One process of :func:`run_world`."""
+    faulthandler.dump_traceback_later(
+        max(timeout_s - STACK_DUMP_LEAD_S, 1.0), exit=False)
     try:
         target, args = inbox.get(timeout=timeout_s)
         if backend == "nccl":
@@ -318,7 +321,7 @@ def _world_main(rank: int, world: int, port: int, backend: str,
             # the ranks share the host's cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+            backend, init_method=f"file://{rendezvous}", world_size=world,
             rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
         try:
             result = target(device, *args)
@@ -327,6 +330,21 @@ def _world_main(rank: int, world: int, port: int, backend: str,
         results.put((rank, result, None))
     except Exception:    # reported to the parent, which raises it
         results.put((rank, None, traceback.format_exc()))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _close(q) -> None:
+    """Take what no process took off ``q`` (its feeder thread can then
+    flush), close it and join its feeder thread, so that a world leaves no
+    thread or pipe behind in this process."""
+    try:
+        while True:
+            q.get_nowait()
+    except (queue.Empty, OSError, EOFError):
+        pass
+    q.close()
+    q.join_thread()
 
 
 def run_world(n: int, target: Callable, args: tuple = (),
@@ -352,9 +370,13 @@ def run_world(n: int, target: Callable, args: tuple = (),
     backend = "nccl" if dev.type == "cuda" else "gloo"
     ctx = multiprocessing.get_context("spawn")
     inbox, results = ctx.Queue(), ctx.Queue()
-    port = _free_port()
+    # The rendezvous is a file store in a directory of this world's own: a
+    # TCP port picked before the ranks bind it could be picked by another
+    # world started meanwhile, whose ranks would then join this one.
+    store_dir = tempfile.mkdtemp(prefix="run_world-")
+    rendezvous = os.path.join(store_dir, "store")
     procs = [ctx.Process(target=_world_main,
-                         args=(r, n, port, backend, timeout_s, inbox,
+                         args=(r, n, rendezvous, backend, timeout_s, inbox,
                                results), daemon=True)
              for r in range(n)]
     for p in procs:
@@ -395,9 +417,14 @@ def run_world(n: int, target: Callable, args: tuple = (),
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
-        # work a lost process never took must not hold this process at
-        # exit (the queue's feeder thread would wait on it)
-        inbox.cancel_join_thread()
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+            if not p.is_alive():
+                p.close()         # its sentinel pipe
+        _close(inbox)
+        _close(results)
+        shutil.rmtree(store_dir, ignore_errors=True)
     if errors:
         raise RuntimeError(
             f"{len(errors)} of {n} ranks failed:\n" + "\n".join(

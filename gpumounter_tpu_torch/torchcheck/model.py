@@ -236,7 +236,11 @@ def make_attention(mesh, cfg: ModelConfig, impl: str = "ring") -> Callable:
     (all-to-all head redistribution, full or flash attention locally).
     Without a mesh, or with a seq dim of 1: "flash" and "ring_pallas" are
     the trainable flash attention on the Hopper kernels, the rest full
-    attention."""
+    attention. "identity" returns ``v``, for ``perf.measure_roofline``'s
+    ablation only: step(flash) - step(identity) is the in-step cost of the
+    attention core."""
+    if impl == "identity":
+        return lambda q, k, v: v
     if impl not in ("ring", "ring_pallas", "ulysses", "ulysses_flash",
                     "flash", "full"):
         raise ValueError(f"unknown attention impl {impl!r}")

@@ -13,9 +13,14 @@ at its first CUDA call, and there is no counterpart of JAX's
 ``clear_backends`` to re-enumerate in place. So :func:`wait_for_devices`
 polls the device count in a CHILD process each time, and this process
 touches CUDA only once the count is reached — a workload must likewise not
-initialise CUDA before the attach has landed. Pinning the visible devices
-(``configure_visible_chips``) waits for the port's device model, which maps
-minors to GPU UUIDs.
+initialise CUDA before the attach has landed.
+
+Partial-host visibility: :func:`configure_visible_chips` pins
+``CUDA_VISIBLE_DEVICES`` to the UUIDs of the ``/dev/nvidiaN`` nodes present
+in this container, read through the device layer's enumerator (minor ->
+UUID from the driver). The pin takes effect at a process's first CUDA
+call, so it is set before it, and re-derived between the polls of
+:func:`wait_for_devices`, whose children see each poll's pin.
 
 Multi-process bring-up (:func:`initialize_distributed`) joins this process
 to a ``torch.distributed`` world of one process per device, and
@@ -25,7 +30,7 @@ probe's checks then run over that world, each process checking its own
 part.
 
 CLI:  python -m gpumounter_tpu_torch.torchcheck.probe --expect 4
-      [--timeout 60] [--cpu-devices N]
+      [--timeout 60] [--cpu-devices N] [--dev-root /dev]
       [--coordinator HOST:PORT --num-processes N --process-id I]
       one JSON line; exit 0 iff the devices are there and validate, 1 when
       a check failed, 2 when the expected count was not reached in time.
@@ -39,6 +44,7 @@ from __future__ import annotations
 import argparse
 import datetime
 import json
+import os
 import subprocess
 import sys
 import time
@@ -140,9 +146,54 @@ def shutdown_distributed() -> bool:
     return True
 
 
+def visible_chip_indices(dev_root: str = "/dev") -> list[int] | None:
+    """Indices of the ``nvidiaN`` nodes present in this container, or None
+    when there are none (CPU-only hosts). After a partial-host mount only
+    the mounted GPUs' nodes exist here, so presence is accessibility."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.utils.config import HostPaths
+    host = HostPaths(dev_root=dev_root)
+    found = [d.index for d in PyEnumerator(host, allow_fake=True).enumerate()]
+    return found or None
+
+
+def configure_visible_chips(dev_root: str = "/dev", env: Any = None,
+                            proc_root: str = "/proc") -> str | None:
+    """The partial-host visibility contract: set ``CUDA_VISIBLE_DEVICES`` to
+    the UUIDs of the ``nvidiaN`` nodes present, in minor order, so that
+    CUDA stays inside the pod's grant. The UUIDs come from the enumerator
+    (the driver's proc tree, else NVML); a node neither knows is left out
+    and logged. An operator's pin is respected; with no node (or no UUID)
+    nothing is set. Returns the effective value.
+
+    CUDA reads the variable at a process's first CUDA call: a pin set in a
+    process that has already touched CUDA changes only its children, one
+    more reason the probe touches CUDA only after the attach."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.utils.config import HostPaths
+    if env is None:
+        env = os.environ
+    if env.get("CUDA_VISIBLE_DEVICES"):
+        return env["CUDA_VISIBLE_DEVICES"]
+    devices = PyEnumerator(HostPaths(dev_root=dev_root, proc_root=proc_root),
+                           allow_fake=True).enumerate()
+    unknown = [d.device_path for d in devices if not d.uuid]
+    if unknown:
+        logger.warning("no UUID for %s; left out of CUDA_VISIBLE_DEVICES",
+                       unknown)
+    uuids = [d.uuid for d in devices if d.uuid]
+    if not uuids:
+        return None
+    value = ",".join(uuids)
+    env["CUDA_VISIBLE_DEVICES"] = value
+    logger.info("CUDA_VISIBLE_DEVICES=%s (from present device nodes)", value)
+    return value
+
+
 def _child_device_count() -> int:
     """``torch.cuda.device_count()`` as a fresh process sees it (this
-    process's count is frozen at its first CUDA call)."""
+    process's count is frozen at its first CUDA call), under this
+    process's environment, ``CUDA_VISIBLE_DEVICES`` included."""
     proc = subprocess.run(
         [sys.executable, "-c",
          "import torch; print(torch.cuda.device_count())"],
@@ -154,15 +205,29 @@ def _child_device_count() -> int:
 
 def wait_for_devices(expected: int, timeout_s: float = 60.0,
                      poll_s: float = 2.0, device: str = "cuda",
-                     cpu_devices: int = 1) -> dict[str, Any]:
+                     cpu_devices: int = 1, dev_root: str = "/dev",
+                     proc_root: str = "/proc",
+                     auto_visible: bool | None = None) -> dict[str, Any]:
     """Poll until ``expected`` devices are visible, counting CUDA devices
     in a child process per poll (see the module docstring); with
     ``device="cpu"`` the count is ``cpu_devices``. Returns the final
-    device summary; raises TimeoutError at the deadline."""
+    device summary; raises TimeoutError at the deadline.
+
+    Before each poll the visibility pin is re-derived from the nodes
+    present (unless operator-set), so GPUs attached since the last poll
+    widen ``CUDA_VISIBLE_DEVICES`` before the child counts. ``auto_visible
+    =None`` infers "not operator-set" from the environment; a caller that
+    has already pinned (``run_probe``) passes the flag, or its own pin
+    would be taken for an operator's."""
     deadline = time.monotonic() + timeout_s
+    if auto_visible is None:
+        auto_visible = not os.environ.get("CUDA_VISIBLE_DEVICES")
+    on_gpu = torch.device(device).type == "cuda"
     while True:
-        count = (_child_device_count() if torch.device(device).type == "cuda"
-                 else cpu_devices)
+        if auto_visible and on_gpu:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+            configure_visible_chips(dev_root, proc_root=proc_root)
+        count = _child_device_count() if on_gpu else cpu_devices
         if count >= expected:
             return device_summary(device, cpu_devices)
         if time.monotonic() >= deadline:
@@ -232,7 +297,8 @@ def _rank_device(dev: torch.device) -> torch.device:
     return dev
 
 
-def _train_mesh(device: torch.device, n_steps: int) -> dict[str, Any]:
+def _train_mesh(device: torch.device, n_steps: int,
+                timed_steps: int = 0) -> dict[str, Any]:
     """One rank of :func:`validate_training` over a mesh: the toy model's
     sharded step over ``make_mesh()`` (the seq dim takes every device),
     T = 16 x seq. Every rank returns the same report."""
@@ -247,12 +313,13 @@ def _train_mesh(device: torch.device, n_steps: int) -> dict[str, Any]:
     tokens = train_lib.make_batch(torch.Generator(device).manual_seed(1), 8,
                                   16 * seq, cfg.vocab)
     tokens = dist_lib.shard(tokens, mesh, ("data", "seq"))
-    report = _train_loop(step, state, tokens, n_steps)
+    report = _train_loop(step, state, tokens, n_steps, timed_steps)
     report["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
     return report
 
 
-def _train_loop(step, state, tokens, n_steps: int) -> dict[str, Any]:
+def _train_loop(step, state, tokens, n_steps: int,
+                timed_steps: int = 0) -> dict[str, Any]:
     t0 = time.monotonic()
     first_loss = float("nan")
     for i in range(n_steps):
@@ -262,37 +329,63 @@ def _train_loop(step, state, tokens, n_steps: int) -> dict[str, Any]:
     final_loss = float(loss)
     elapsed = time.monotonic() - t0
     ok = bool(np.isfinite(final_loss) and final_loss < first_loss)
-    return {"mesh": None, "first_loss": first_loss, "final_loss": final_loss,
-            "steps": n_steps, "elapsed_s": round(elapsed, 3), "ok": ok}
+    report = {"mesh": None, "first_loss": first_loss,
+              "final_loss": final_loss, "steps": n_steps,
+              "elapsed_s": round(elapsed, 3), "ok": ok}
+    if timed_steps > 0:
+        # every step above has finished (float(loss) waited for it)
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            state, loss = step(state, tokens)
+        if tokens.is_cuda:
+            torch.cuda.synchronize(tokens.device)
+        step_ms = (time.perf_counter() - t0) / timed_steps * 1e3
+        report["step_ms"] = step_ms
+        report["ok"] = bool(ok and np.isfinite(float(loss))
+                            and np.isfinite(step_ms))
+    return report
 
 
 def validate_training(n_steps: int = 4, device: str = "cuda",
-                      n_devices: int = 1) -> dict[str, Any]:
+                      n_devices: int = 1,
+                      timed_steps: int = 0) -> dict[str, Any]:
     """Train the toy flagship model; loss must be finite and decreasing —
     compute is real, not just enumerable. With ``n_devices`` > 1 the step
     is sharded over a ``make_mesh()`` of that many processes (one per
     device, as the JAX probe shards it over every device) and the report
-    names the mesh; with one device it runs in this process."""
+    names the mesh; with one device it runs in this process.
+
+    ``timed_steps`` > 0 times that many more steps after the first
+    ``n_steps`` (the host clock, ended by ``torch.cuda.synchronize``) and
+    reports ``step_ms``."""
     from gpumounter_tpu_torch.torchcheck import model as model_lib
     from gpumounter_tpu_torch.torchcheck import train as train_lib
 
     dev = resolve_device(device)
     if dist.is_initialized():
-        return _train_mesh(_rank_device(dev), n_steps)
+        return _train_mesh(_rank_device(dev), n_steps, timed_steps)
     if n_devices > 1:
-        return dist_lib.run_world(n_devices, _train_mesh, (n_steps,),
-                                  device=dev)[0]
+        return dist_lib.run_world(n_devices, _train_mesh,
+                                  (n_steps, timed_steps), device=dev)[0]
     cfg = model_lib.ModelConfig()
     state = train_lib.init_state(cfg, seed=0, device=dev)
     step = train_lib.make_train_step(cfg)
     tokens = train_lib.make_batch(torch.Generator(dev).manual_seed(1), 8, 64,
                                   cfg.vocab)
-    return _train_loop(step, state, tokens, n_steps)
+    return _train_loop(step, state, tokens, n_steps, timed_steps)
 
 
 def run_probe(expected: int | None = None, timeout_s: float = 60.0,
-              device: str = "cuda", cpu_devices: int = 1) -> dict[str, Any]:
+              device: str = "cuda", cpu_devices: int = 1,
+              dev_root: str = "/dev", proc_root: str = "/proc"
+              ) -> dict[str, Any]:
     report: dict[str, Any] = {"ok": False}
+    # Partial-host contract: pin CUDA to the GPUs this pod holds before the
+    # first CUDA call (no-op without nodes, or with an operator's pin).
+    operator_pinned = bool(os.environ.get("CUDA_VISIBLE_DEVICES"))
+    visible = configure_visible_chips(dev_root, proc_root=proc_root)
+    if visible is not None:
+        report["cuda_visible_devices"] = visible
     if dist.is_initialized():
         # the world is fixed once joined: nothing to wait for
         report["devices"] = device_summary(device, cpu_devices)
@@ -301,9 +394,10 @@ def run_probe(expected: int | None = None, timeout_s: float = 60.0,
                 f"expected {expected} devices, the world has "
                 f"{report['devices']['device_count']}")
     elif expected:
-        report["devices"] = wait_for_devices(expected, timeout_s,
-                                             device=device,
-                                             cpu_devices=cpu_devices)
+        report["devices"] = wait_for_devices(
+            expected, timeout_s, device=device, cpu_devices=cpu_devices,
+            dev_root=dev_root, proc_root=proc_root,
+            auto_visible=not operator_pinned)
     else:
         report["devices"] = device_summary(device, cpu_devices)
     n = report["devices"]["device_count"]
@@ -335,6 +429,9 @@ def main(argv: list[str] | None = None) -> int:
                              "multi-process mode")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--dev-root", default="/dev",
+                        help="where nvidiaN device nodes live (fixture "
+                             "trees in tests)")
     args = parser.parse_args(argv)
     distributed = args.coordinator is not None or args.process_id is not None
     if args.num_processes is not None and not distributed:
@@ -353,7 +450,8 @@ def main(argv: list[str] | None = None) -> int:
                                args.process_id, device)
     try:
         report = run_probe(args.expect, args.timeout, device=device,
-                           cpu_devices=args.cpu_devices or 1)
+                           cpu_devices=args.cpu_devices or 1,
+                           dev_root=args.dev_root)
     except TimeoutError as e:
         print(json.dumps({"ok": False, "error": str(e)}))
         return 2

@@ -46,6 +46,11 @@ def test_no_forbidden_module_loaded_at_run_time():
         "import importlib, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        # the native loader and the NVML reader run, not only import
+        "from gpumounter_tpu_torch.device import enumerator, "
+        "native_enumerator\n"
+        "native_enumerator.load_library()\n"
+        "enumerator.gpu_identities('/proc')\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -54,6 +59,19 @@ def test_no_forbidden_module_loaded_at_run_time():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", [
+    "gpumounter_tpu_torch/device/model.py",
+    "gpumounter_tpu_torch/device/enumerator.py",
+    "gpumounter_tpu_torch/device/native_enumerator.py",
+    "gpumounter_tpu_torch/device/fake.py",
+    "gpumounter_tpu_torch/device/plan.py",
+    "gpumounter_tpu_torch/utils/config.py",
+    "gpumounter_tpu_torch/utils/log.py",
+    "gpumounter_tpu_torch/torchcheck/gpu_selftest.py"])
+def test_device_layer_and_selftest_are_checked(module):
+    assert REPO / module in PORT_FILES
 
 
 def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
@@ -65,7 +83,8 @@ def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
 
     from gpumounter_tpu_torch import entry
     from gpumounter_tpu_torch.torchcheck import dist, model, moe, pipeline
-    from gpumounter_tpu_torch.torchcheck import elastic, federation, probe
+    from gpumounter_tpu_torch.torchcheck import elastic, federation, perf
+    from gpumounter_tpu_torch.torchcheck import probe
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -84,6 +103,12 @@ def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
         "refederator": lambda: federation.Refederator(None),
         "member": lambda: federation.MemberRunner(
             "http://127.0.0.1:1", "g", "default/p", "/nonexistent"),
+        "measure_both": lambda: perf.measure_both(),
+        "measure_attention_kernels": lambda: perf.measure_attention_kernels(),
+        "measure_long_context": lambda: perf.measure_long_context(),
+        "measure_roofline": lambda: perf.measure_roofline(),
+        "validate_training_timed": lambda: probe.validate_training(
+            timed_steps=2),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

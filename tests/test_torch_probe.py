@@ -138,3 +138,66 @@ def test_run_probe_on_gpu():
     r = probe.run_probe()
     assert r["ok"], r
     assert r["devices"]["backend"] == "cuda"
+
+
+def _fds_and_threads():
+    import threading
+    return len(os.listdir("/proc/self/fd")), threading.active_count()
+
+
+def test_a_world_leaves_no_thread_fd_or_rendezvous_behind(monkeypatch):
+    """run_world closes its queues (joining their feeder threads), the
+    processes' sentinels and its rendezvous directory before it returns,
+    so a long-lived caller (a test process, a daemon) does not grow."""
+    import tempfile
+
+    import torch_worlds
+    from gpumounter_tpu_torch.torchcheck import dist as dist_lib
+    stores: list[str] = []
+    real_mkdtemp = tempfile.mkdtemp
+
+    def mkdtemp(*args, **kwargs):
+        stores.append(real_mkdtemp(*args, **kwargs))
+        return stores[-1]
+
+    # this test's own rendezvous directories (other processes' worlds may
+    # be running in the same temporary directory)
+    monkeypatch.setattr(dist_lib.tempfile, "mkdtemp", mkdtemp)
+    dist_lib.run_world(2, torch_worlds.rank_sum, device="cpu")   # warm-up
+    before = _fds_and_threads()
+    for _ in range(3):
+        assert dist_lib.run_world(2, torch_worlds.rank_sum,
+                                  device="cpu") == [1, 1]
+        assert _fds_and_threads() == before
+    assert len(stores) == 4
+    assert not [d for d in stores if os.path.exists(d)]
+
+
+def test_concurrent_worlds_do_not_meet():
+    """Two worlds started at the same moment each form their own
+    rendezvous (a file store in a directory of their own)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch_worlds
+    from gpumounter_tpu_torch.torchcheck import dist as dist_lib
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(dist_lib.run_world, n, torch_worlds.rank_sum,
+                               device="cpu") for n in (2, 3)]
+        assert [f.result(timeout=300) for f in futures] == [[1, 1],
+                                                            [3, 3, 3]]
+
+
+def test_a_stuck_rank_dumps_its_stack_before_the_deadline(capfd):
+    """A rank still running just short of the world's deadline prints
+    every thread's stack, so the stuck one names where it waits."""
+    import time
+
+    import torch_worlds
+    from gpumounter_tpu_torch.torchcheck import dist as dist_lib
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match=r"ranks \[0, 1\]"):
+        dist_lib.run_world(2, torch_worlds.stuck_world, device="cpu",
+                           timeout_s=dist_lib.STACK_DUMP_LEAD_S + 8)
+    assert time.monotonic() - t0 < 60
+    err = capfd.readouterr().err
+    assert "Timeout (0:00:0" in err and "in stuck_world" in err, err[-3000:]

@@ -302,3 +302,21 @@ def vanishing_world(device) -> int:
     x = torch.ones(1)
     dist.all_reduce(x)
     return int(x.item())
+
+
+def stuck_world(device) -> int:
+    """Rank 1 never reaches the collective its peers wait in (a stuck
+    rank); its stack is what the world's stack dump must name."""
+    import time
+    if dist.get_rank() == 1:
+        time.sleep(600)
+    x = torch.ones(1)
+    dist.all_reduce(x)
+    return int(x.item())
+
+
+def rank_sum(device) -> int:
+    """The sum of the ranks over the world."""
+    x = torch.tensor([dist.get_rank()])
+    dist.all_reduce(x)
+    return int(x.item())
