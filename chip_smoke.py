@@ -56,14 +56,29 @@ Phases, each printing one JSON line on stdout:
      (``SliceMaster``, served here): step numbers strictly increase,
      fingerprints survive each transition, the loss goes down, and the
      members resized out exit 0. On one card (b) is reported degenerate;
-  8. the kernels line (each entry names the device function and the line
+  8. selftest — ``gpu_selftest`` in a child process, its nine checks;
+  9. device_layer — the enumerators (Python and native) on the real /dev
+     and /proc, held against nvidia-smi by UUID;
+ 10. node_attach — the node half of an attach on the real device layer:
+     both native libraries built, a fake kubelet listing the card's UUID
+     (and one id the node lacks) for a slave pod, ``GPUCollector`` mapping
+     it to the card's node, ``GPUMounter`` granting the card and its three
+     companions through the cgroup-v1 device gate of a fixture container
+     under ``build/node_attach/`` and making their nodes there (fake nodes:
+     the checkout's filesystem may refuse mknod), a child holding a CUDA
+     context on the card making the detach refuse, the detach completing
+     after the child exits (companions revoked with the last GPU, kept in
+     a container that held them before the attach), 20 timed cycles of
+     ``update_status``, grant + mount and revoke + unmount, and the BPF
+     program's length with ``BpfGate.supported()``;
+ 11. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
 versions); bf16 1e-2 on the normalised output and on gradients' relative
 Frobenius error, 1e-3 on m and lse. Exits non-zero, without the device
 line, when there is no GPU, when the package is missing, or when any phase
-failed.
+failed (then the last line is ``{"ok": false, "failed": [...]}``).
 """
 
 from __future__ import annotations
@@ -75,6 +90,7 @@ import math
 import multiprocessing
 import os
 import re
+import select
 import shutil
 import subprocess
 import sys
@@ -1202,6 +1218,209 @@ def device_layer(probe) -> dict:
             "ok": all(checks.values())}
 
 
+# The node_attach phase's fixture tree: under the checkout's build directory
+# (not committed), removed when the phase ends. Its filesystem may refuse
+# mknod(2), so the container's nodes are fake (``.majmin`` sidecars).
+NODE_ATTACH_DIR = os.path.join(REPO, "build", "node_attach")
+NODE_ATTACH_CYCLES = 20
+# An id no node has: the collector must log it and skip it.
+ABSENT_UUID = "GPU-00000000-0000-0000-0000-000000000000"
+# A child that holds a CUDA context on the card until its stdin closes.
+CUDA_HOLDER = ("import sys, torch; torch.zeros(1, device='cuda'); "
+               "torch.cuda.synchronize(); print('ready', flush=True); "
+               "sys.stdin.read()")
+IDLE_HOLDER = "import sys; sys.stdin.read()"
+
+
+def _ms_stats(values: list[float]) -> dict:
+    ordered = sorted(values)
+    return {"median": ordered[len(ordered) // 2], "min": ordered[0],
+            "max": ordered[-1], "n": len(ordered)}
+
+
+def node_attach(card: str) -> dict:
+    """The node half of an attach on this machine's real device layer:
+    the collector maps a kubelet listing of the card's UUID to its node,
+    the mounter grants it and its companions through the v1 device gate of
+    a fixture container and makes the nodes there, a child holding a CUDA
+    context on the card makes the detach refuse, and after it exits the
+    detach completes; then the same cycle timed, and the BPF codegen."""
+    import logging
+
+    from gpumounter_tpu_torch.actuation import bpf
+    from gpumounter_tpu_torch.collector.collector import GPUCollector
+    from gpumounter_tpu_torch.collector.podresources import \
+        FakePodResourcesClient
+    from gpumounter_tpu_torch.device import enumerator as en
+    from gpumounter_tpu_torch.testing.node_fixture import FixtureNode
+    from gpumounter_tpu_torch.utils import consts
+    from gpumounter_tpu_torch.utils.config import HostPaths
+    from gpumounter_tpu_torch.utils.errors import DeviceBusyError
+
+    native = os.path.join(REPO, "gpumounter_tpu_torch", "native")
+    build = subprocess.run(["make", "-C", native], capture_output=True,
+                           text=True, timeout=300)
+    libs = {name: os.path.exists(os.path.join(native, "build", name))
+            for name in ("libgpuprobe.so", "libbpfgate.so")}
+    if build.returncode != 0 or not all(libs.values()):
+        return {"native_build": build.stdout[-1000:] + build.stderr[-1000:],
+                "libs": libs, "ok": False}
+    checks: dict[str, bool] = {"native_libs_built": True}
+
+    # 2-3: the collector over the real enumerator and a fake kubelet
+    enum = en.PyEnumerator(HostPaths())
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    warnings: list[str] = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            warnings.append(record.getMessage())
+    catch = Catch(logging.WARNING)
+    logging.getLogger("tpumounter.collector").addHandler(catch)
+    kubelet = FakePodResourcesClient()
+    slave = "workload-slave-pod-node-attach"
+    try:
+        cards = [d for d in enum.enumerate() if d.uuid in smi_uuids]
+        kubelet.assign(consts.DEFAULT_POOL_NAMESPACE, slave,
+                       [cards[0].uuid, ABSENT_UUID])
+        collector = GPUCollector(enum, kubelet)
+        gpus = collector.get_pod_gpu_resources_exact("workload", "default",
+                                                     {slave})
+    finally:
+        logging.getLogger("tpumounter.collector").removeHandler(catch)
+    gpu = cards[0]
+    checks["collector_maps_uuid_to_node"] = [
+        (g.uuid, g.major, g.minor, g.device_path) for g in gpus] == [
+        (gpu.uuid, consts.NVIDIA_MAJOR, gpu.minor, gpu.device_path)]
+    checks["unknown_id_logged_and_skipped"] = any(
+        ABSENT_UUID in w for w in warnings)
+    companions = {os.path.basename(c.host_path): (c.major, c.minor)
+                  for c in gpu.companions}
+    checks["three_companions"] = sorted(companions) == sorted(
+        consts.NVIDIA_COMPANION_NAMES)
+    host_rdev = {}
+    for path in [gpu.device_path] + [c.host_path for c in gpu.companions]:
+        st = os.stat(path)
+        host_rdev[os.path.basename(path)] = (os.major(st.st_rdev),
+                                             os.minor(st.st_rdev))
+    granted = {(gpu.major, gpu.minor), *companions.values()}
+
+    # 4-5: the mounter on a fixture container, busy detach, then detach
+    shutil.rmtree(NODE_ATTACH_DIR, ignore_errors=True)
+    procs: list[subprocess.Popen] = []
+
+    def spawn(code: str) -> subprocess.Popen:
+        proc = subprocess.Popen([sys.executable, "-c", code],
+                                stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, text=True)
+        procs.append(proc)
+        return proc
+
+    report: dict = {}
+    try:
+        idle, idle_held = spawn(IDLE_HOLDER), spawn(IDLE_HOLDER)
+        node = FixtureNode(NODE_ATTACH_DIR)
+        box = node.container("workload", [idle.pid],
+                             held=[("/dev/null", 1, 3)])
+        mounter = node.mounter(enum, collector.plans)
+        t0 = time.perf_counter()
+        created = mounter.mount_chips(box.pod, gpus, gpus)
+        first_mount_ms = (time.perf_counter() - t0) * 1e3
+        key = node.controller.container_dir(box.pod, box.container_id)
+
+        def gate_pairs() -> set:
+            live, _opens, _denies = node.gate.backend.read(key)
+            return {(k[1], k[2]) for k in live}
+
+        expect_nodes = {os.path.basename(gpu.device_path): host_rdev[
+            os.path.basename(gpu.device_path)], **{
+            name: host_rdev[name] for name in companions}, "null": (1, 3)}
+        allow = box.cgroup_lines("devices.allow")
+        checks["gate_holds_gpu_and_companions"] = (
+            gate_pairs() == granted
+            and sorted(allow) == sorted(f"c {a}:{b} rw" for a, b in granted))
+        checks["nodes_match_host_rdev"] = (created == 4
+                                           and box.nodes() == expect_nodes)
+
+        holder = spawn(CUDA_HOLDER)
+        # a child stuck in CUDA's init must not hang the script
+        ready = (bool(select.select([holder.stdout], [], [], 300)[0])
+                 and holder.stdout.readline().strip() == "ready")
+        box.set_pids([idle.pid, holder.pid])
+        busy_pids = mounter.pod_device_processes(box.pod, gpu)
+        try:
+            mounter.unmount_chips(box.pod, gpus, [])
+            refused = None
+        except DeviceBusyError as e:
+            refused = e.pids
+        checks["busy_detach_refused"] = (ready and busy_pids == [holder.pid]
+                                         and refused == [holder.pid])
+        checks["busy_detach_left_everything"] = (
+            box.nodes() == expect_nodes and gate_pairs() == granted)
+        holder.stdin.close()
+        holder_rc = holder.wait(timeout=120)
+        mounter.unmount_chips(box.pod, gpus, [])
+        deny = box.cgroup_lines("devices.deny")
+        checks["detach_completes_after_exit"] = (
+            box.nodes() == {"null": (1, 3)} and gate_pairs() == set()
+            and sorted(deny) == sorted(f"c {a}:{b} rw" for a, b in granted))
+
+        # a container the runtime gave a GPU at creation keeps the
+        # companions when the hot-attached card leaves
+        held = [("/dev/nvidia0", consts.NVIDIA_MAJOR, 0)] + [
+            (name, *majmin) for name, majmin in companions.items()]
+        kept = node.container("workload-held", [idle_held.pid], held=held)
+        mounter.mount_chips(kept.pod, gpus, gpus)
+        mounter.unmount_chips(kept.pod, gpus, [])
+        checks["held_companions_stay"] = (
+            kept.nodes() == {os.path.basename(p): (a, b)
+                             for p, a, b in held}
+            and kept.cgroup_lines("devices.deny") == [
+                f"c {gpu.major}:{gpu.minor} rw"])
+
+        # 6: the same cycle, timed on the host clock (the absent id has
+        # been checked; it leaves the listing)
+        kubelet.assign(consts.DEFAULT_POOL_NAMESPACE, slave, [gpu.uuid])
+        box.set_pids([idle.pid])
+        times = {"update_status": [], "grant_mount": [],
+                 "revoke_unmount": []}
+        for _ in range(NODE_ATTACH_CYCLES):
+            t0 = time.perf_counter()
+            collector.update_status()
+            t1 = time.perf_counter()
+            mounter.mount_chips(box.pod, gpus, gpus)
+            t2 = time.perf_counter()
+            mounter.unmount_chips(box.pod, gpus, [])
+            t3 = time.perf_counter()
+            times["update_status"].append((t1 - t0) * 1e3)
+            times["grant_mount"].append((t2 - t1) * 1e3)
+            times["revoke_unmount"].append((t3 - t2) * 1e3)
+        checks["cycles_end_clean"] = box.nodes() == {"null": (1, 3)}
+        report.update(first_mount_ms=first_mount_ms, holder_rc=holder_rc,
+                      busy_pids=busy_pids,
+                      ms={k: _ms_stats(v) for k, v in times.items()})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(NODE_ATTACH_DIR, ignore_errors=True)
+
+    # 7: the BPF program for this card, and whether the kernel loads one
+    lib = bpf.BpfGate()
+    program = lib.build_program(bpf.rules_for_chips(gpus))
+    return {"nvidia_smi": card, "uuid_source": enum.uuid_source,
+            "card": {"uuid": gpu.uuid, "node": gpu.device_path,
+                     "majmin": [gpu.major, gpu.minor]},
+            "companions": companions,
+            "unidentified": [d.device_path for d in collector.unidentified],
+            "gate_backend": node.gate.backend.name,
+            "nodes": "fake (.majmin sidecars)",
+            "bpf_program_insns": len(program),
+            "bpf_supported": lib.supported(), **report,
+            "checks": checks, "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1404,6 +1623,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("selftest", selftest)
     phase("device_layer", lambda: device_layer(probe))
+    phase("node_attach", lambda: node_attach(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")
@@ -1445,6 +1665,7 @@ def main() -> int:
     print(nvidia_smi("name,power.limit"), flush=True)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        print(json.dumps({"ok": False, "failed": failed}), flush=True)
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,43 @@
+# -*- coding: utf-8 -*-
+# Generated by the protocol buffer compiler.  DO NOT EDIT!
+# source: podresources_v1.proto
+"""Generated protocol buffer code."""
+from google.protobuf.internal import builder as _builder
+from google.protobuf import descriptor as _descriptor
+from google.protobuf import descriptor_pool as _descriptor_pool
+from google.protobuf import symbol_database as _symbol_database
+# @@protoc_insertion_point(imports)
+
+_sym_db = _symbol_database.Default()
+
+
+
+
+DESCRIPTOR = _descriptor_pool.Default().AddSerializedFile(b'\n\x15podresources_v1.proto\x12\x02v1\"\x19\n\x17ListPodResourcesRequest\"C\n\x18ListPodResourcesResponse\x12\'\n\rpod_resources\x18\x01 \x03(\x0b\x32\x10.v1.PodResources\"[\n\x0cPodResources\x12\x0c\n\x04name\x18\x01 \x01(\t\x12\x11\n\tnamespace\x18\x02 \x01(\t\x12*\n\ncontainers\x18\x03 \x03(\x0b\x32\x16.v1.ContainerResources\"Z\n\x12\x43ontainerResources\x12\x0c\n\x04name\x18\x01 \x01(\t\x12%\n\x07\x64\x65vices\x18\x02 \x03(\x0b\x32\x14.v1.ContainerDevices\x12\x0f\n\x07\x63pu_ids\x18\x03 \x03(\x03\"a\n\x10\x43ontainerDevices\x12\x15\n\rresource_name\x18\x01 \x01(\t\x12\x12\n\ndevice_ids\x18\x02 \x03(\t\x12\"\n\x08topology\x18\x03 \x01(\x0b\x32\x10.v1.TopologyInfo\"+\n\x0cTopologyInfo\x12\x1b\n\x05nodes\x18\x01 \x03(\x0b\x32\x0c.v1.NUMANode\"\x16\n\x08NUMANode\x12\n\n\x02ID\x18\x01 \x01(\x03\"\x1d\n\x1b\x41llocatableResourcesRequest\"V\n\x1c\x41llocatableResourcesResponse\x12%\n\x07\x64\x65vices\x18\x01 \x03(\x0b\x32\x14.v1.ContainerDevices\x12\x0f\n\x07\x63pu_ids\x18\x02 \x03(\x03\x32\xb9\x01\n\x12PodResourcesLister\x12\x43\n\x04List\x12\x1b.v1.ListPodResourcesRequest\x1a\x1c.v1.ListPodResourcesResponse\"\x00\x12^\n\x17GetAllocatableResources\x12\x1f.v1.AllocatableResourcesRequest\x1a .v1.AllocatableResourcesResponse\"\x00\x62\x06proto3')
+
+_builder.BuildMessageAndEnumDescriptors(DESCRIPTOR, globals())
+_builder.BuildTopDescriptorsAndMessages(DESCRIPTOR, 'podresources_v1_pb2', globals())
+if _descriptor._USE_C_DESCRIPTORS == False:
+
+  DESCRIPTOR._options = None
+  _LISTPODRESOURCESREQUEST._serialized_start=29
+  _LISTPODRESOURCESREQUEST._serialized_end=54
+  _LISTPODRESOURCESRESPONSE._serialized_start=56
+  _LISTPODRESOURCESRESPONSE._serialized_end=123
+  _PODRESOURCES._serialized_start=125
+  _PODRESOURCES._serialized_end=216
+  _CONTAINERRESOURCES._serialized_start=218
+  _CONTAINERRESOURCES._serialized_end=308
+  _CONTAINERDEVICES._serialized_start=310
+  _CONTAINERDEVICES._serialized_end=407
+  _TOPOLOGYINFO._serialized_start=409
+  _TOPOLOGYINFO._serialized_end=452
+  _NUMANODE._serialized_start=454
+  _NUMANODE._serialized_end=476
+  _ALLOCATABLERESOURCESREQUEST._serialized_start=478
+  _ALLOCATABLERESOURCESREQUEST._serialized_end=507
+  _ALLOCATABLERESOURCESRESPONSE._serialized_start=509
+  _ALLOCATABLERESOURCESRESPONSE._serialized_end=595
+  _PODRESOURCESLISTER._serialized_start=598
+  _PODRESOURCESLISTER._serialized_end=783
+# @@protoc_insertion_point(module_scope)

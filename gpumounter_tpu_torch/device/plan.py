@@ -5,10 +5,11 @@ The facts actuation needs about a GPU — which container paths to mknod,
 which (major, minor) pairs the cgroup rules need, which companion nodes
 are shared and must be deduplicated — change only on hot-plug, so they are
 frozen per enumeration into an immutable :class:`ChipPlan`. On an NVIDIA
-node every GPU shares ``nvidiactl`` and the uvm pair: the batch functions
-keep each shared node, and its (major, minor), while any GPU that stays
-still needs it, so a one-GPU detach never revokes ``nvidiactl`` from the
-GPUs that stay.
+node every GPU shares ``nvidiactl`` and the uvm pair: :func:`batch_creates`
+makes each shared node once per container. What a detach may revoke and
+unlink is the device gate's decision
+(:func:`gpumounter_tpu_torch.actuation.bpf.revoked_majmins`): never a
+shared node a GPU that stays still needs.
 """
 
 from __future__ import annotations
@@ -98,41 +99,3 @@ def batch_creates(plans: list[ChipPlan]) -> list[PlanOp]:
                 seen.add(op)
                 out.append(op)
     return out
-
-
-def batch_removes(plans: list[ChipPlan],
-                  remaining: list[ChipPlan]) -> list[str]:
-    """Fused unlink list: the detached GPUs' nodes minus any node a
-    remaining GPU still needs (shared companions leave with the last GPU,
-    not the first)."""
-    keep = {op[0] for plan in remaining for op in plan.creates}
-    seen: set[str] = set()
-    out: list[str] = []
-    for plan in plans:
-        for path in plan.removes:
-            if path not in keep and path not in seen:
-                seen.add(path)
-                out.append(path)
-    return out
-
-
-def batch_majmins(plans: list[ChipPlan]) -> list[tuple[int, int]]:
-    """Deduplicated (major, minor) pairs across the batch, in order — the
-    cgroup-permissioning argument list."""
-    seen: set[tuple[int, int]] = set()
-    out: list[tuple[int, int]] = []
-    for plan in plans:
-        for majmin in plan.majmins:
-            if majmin not in seen:
-                seen.add(majmin)
-                out.append(majmin)
-    return out
-
-
-def batch_revokes(plans: list[ChipPlan],
-                  remaining: list[ChipPlan]) -> list[tuple[int, int]]:
-    """The (major, minor) pairs a detach of ``plans`` may revoke: theirs,
-    less every pair a remaining GPU still needs (``nvidiactl`` and the uvm
-    pair stay while any GPU does)."""
-    keep = set(batch_majmins(remaining))
-    return [majmin for majmin in batch_majmins(plans) if majmin not in keep]

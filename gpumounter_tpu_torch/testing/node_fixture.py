@@ -1,0 +1,124 @@
+"""A node's containers on a fixture tree: the node half of an attach without
+a kubelet or a container runtime.
+
+:class:`FixtureNode` is the worker's view of a host under one root
+directory: a cgroup-v1 hierarchy (cgroupfs driver), a ``proc`` tree, and the
+device gate and actuator over them (:func:`build_gate` picks the v1
+backend). :class:`FixtureContainer` is one Pod's container on it: a
+``devices`` cgroup whose ``cgroup.procs`` lists its PIDs, and
+``proc/<pid>/root`` as its root filesystem with the /dev nodes the runtime
+gave it.
+
+Device nodes are fake — regular files with ``.majmin`` sidecars, the
+enumerators' fixture format — so the tree may sit on a filesystem that
+refuses mknod(2). The GPUs come from whatever enumerator the caller passes:
+a fake one in tests, the real ``/dev`` and NVML on a machine with a card.
+The PIDs may be real processes: busy detection reads them through the
+enumerator's own ``/proc``.
+
+    node = FixtureNode("/path/to/root")
+    box = node.container("workload", pids=[os.getpid()])
+    mounter = node.mounter(collector.enumerator, collector.plans)
+    mounter.mount_chips(box.pod, gpus, gpus)
+    box.nodes()        # {"nvidia1": (195, 1), "nvidiactl": (195, 255), ...}
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+
+from gpumounter_tpu_torch.actuation.cgroup import CgroupDeviceController
+from gpumounter_tpu_torch.actuation.gate import build_gate
+from gpumounter_tpu_torch.actuation.mount import GPUMounter
+from gpumounter_tpu_torch.actuation.nsenter import ProcRootActuator
+from gpumounter_tpu_torch.device.enumerator import Enumerator
+from gpumounter_tpu_torch.device.plan import NodePlanCache
+from gpumounter_tpu_torch.utils.config import HostPaths
+
+
+class FixtureContainer:
+    """The only container of Pod ``default/<name>`` on a
+    :class:`FixtureNode`."""
+
+    def __init__(self, node: "FixtureNode", name: str, pids: list[int],
+                 held: list[tuple[str, int, int]] = ()):
+        digest = hashlib.sha256(name.encode()).hexdigest()
+        self.container_id = f"containerd://{digest}"
+        self.pod = {
+            "metadata": {"name": name, "namespace": "default",
+                         "uid": f"{digest[:8]}-{digest[8:12]}-{digest[12:16]}"
+                                f"-{digest[16:20]}-{digest[20:32]}"},
+            "spec": {"containers": [{"name": "main"}]},
+            "status": {"qosClass": "BestEffort", "containerStatuses": [
+                {"name": "main", "containerID": self.container_id}]},
+        }
+        self.cgroup_dir = node.controller.container_dir(self.pod,
+                                                        self.container_id)
+        os.makedirs(self.cgroup_dir)
+        self.set_pids(pids)
+        self.dev = os.path.join(node.host.proc_root, str(pids[0]), "root",
+                                "dev")
+        os.makedirs(self.dev)
+        for path, major, minor in held:
+            target = os.path.join(self.dev, os.path.basename(path))
+            open(target, "w").close()
+            with open(target + ".majmin", "w") as f:
+                f.write(f"{major}:{minor}")
+
+    def set_pids(self, pids: list[int]) -> None:
+        """The container's processes, the first one its root's owner."""
+        with open(os.path.join(self.cgroup_dir, "cgroup.procs"), "w") as f:
+            f.write("".join(f"{pid}\n" for pid in pids))
+
+    def nodes(self) -> dict[str, tuple[int, int]]:
+        """The container's /dev: node name -> (major, minor)."""
+        out = {}
+        for name in sorted(os.listdir(self.dev)):
+            if name.endswith(".majmin"):
+                continue
+            with open(os.path.join(self.dev, name + ".majmin")) as f:
+                major, minor = f.read().strip().split(":")
+            out[name] = (int(major), int(minor))
+        return out
+
+    def cgroup_lines(self, filename: str) -> list[str]:
+        """What the gate wrote to ``devices.allow`` or ``devices.deny``."""
+        path = os.path.join(self.cgroup_dir, filename)
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            return f.read().splitlines()
+
+
+class FixtureNode:
+    """Host paths, cgroup controller, device gate and actuator of a node
+    under ``root``."""
+
+    def __init__(self, root: str):
+        self.host = HostPaths(
+            dev_root=os.path.join(root, "dev"),
+            proc_root=os.path.join(root, "proc"),
+            sys_root=os.path.join(root, "sys"),
+            cgroup_root=os.path.join(root, "sys", "fs", "cgroup"))
+        for path in (self.host.dev_root, self.host.proc_root,
+                     self.host.cgroup_root):
+            os.makedirs(path, exist_ok=True)
+        self.controller = CgroupDeviceController(self.host, driver="cgroupfs",
+                                                 version=1)
+        self.gate = build_gate(self.controller, node_name="fixture-node")
+        self.actuator = ProcRootActuator(self.host, fake_nodes=True)
+
+    def container(self, name: str, pids: list[int],
+                  held: list[tuple[str, int, int]] = ()) -> FixtureContainer:
+        """A container of Pod ``default/<name>`` whose first PID owns its
+        root; ``held`` are the (path, major, minor) nodes its runtime gave
+        it."""
+        return FixtureContainer(self, name, pids, held)
+
+    def mounter(self, enumerator: Enumerator,
+                plans: NodePlanCache | None = None) -> GPUMounter:
+        """A mounter over this node; busy detection goes through
+        ``enumerator`` (and its ``/proc``)."""
+        return GPUMounter(self.controller, self.actuator, enumerator,
+                          self.host, plans=plans, gate=self.gate)

@@ -9,9 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
-# The kubelet's PodResources socket (the control plane's
-# ``KUBELET_SOCKET_PATH``).
-KUBELET_SOCKET_PATH = "/var/lib/kubelet/pod-resources/kubelet.sock"
+from gpumounter_tpu_torch.utils.consts import KUBELET_SOCKET_PATH
 
 
 @dataclasses.dataclass

@@ -6,6 +6,8 @@ tag both packages read), it is copied here and must stay equal to the
 control plane's.
 """
 
+import enum
+
 # How long a re-federation barrier may sit incomplete before the control
 # plane surfaces it as STUCK (``gpumounter_tpu/utils/consts.py``,
 # ``DEFAULT_RESIZE_BARRIER_TIMEOUT_S``). Members poll with the same
@@ -41,3 +43,34 @@ NVIDIA_UVM_PROC_DEVICES_NAME = "nvidia-uvm"
 # permission, 0666 file mode.
 DEVICE_CGROUP_PERMISSIONS = "rw"
 DEVICE_FILE_MODE = 0o666
+
+# --- Kubelet PodResources API and slave pods (the control plane's values) ----
+KUBELET_SOCKET_PATH = "/var/lib/kubelet/pod-resources/kubelet.sock"
+PODRESOURCES_CONNECT_TIMEOUT_S = 10.0
+# The namespace of the slave pods that hold GPUs for their owners.
+DEFAULT_POOL_NAMESPACE = "gpu-pool"
+
+
+class MountType(str, enum.Enum):
+    """How a pod holds its devices (ref ``pkg/util/gpu/types.go:19-26``)."""
+
+    ENTIRE = "entire-mount"
+    SINGLE = "single-mount"
+    NONE = "no-mount"
+    UNKNOWN = "unknown-mount"
+
+
+# --- Telemetry and the device gate (environment variables) --------------------
+# The names are the control plane's, so one deployment configures both.
+# "0" disables lifecycle events; the JSONL sidecar and ring size are
+# optional.
+ENV_EVENTS = "TPU_EVENTS"
+ENV_EVENT_LOG = "TPU_EVENT_LOG"
+ENV_EVENT_RING = "TPU_EVENT_RING"
+# Flight-recorder bundle directory (unset = disabled) and the minimum
+# seconds between bundles.
+ENV_FLIGHT_DIR = "TPU_FLIGHT_DIR"
+ENV_FLIGHT_INTERVAL_S = "TPU_FLIGHT_INTERVAL_S"
+# Device-gate mode: "auto" (the strongest backend the node supports) or
+# "legacy" (direct cgroup-controller calls, no gate state).
+ENV_GATE = "TPU_GATE"

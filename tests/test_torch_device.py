@@ -12,6 +12,7 @@ import os
 
 import pytest
 
+from gpumounter_tpu_torch.actuation import bpf
 from gpumounter_tpu_torch.device import enumerator as en
 from gpumounter_tpu_torch.device import plan
 from gpumounter_tpu_torch.device.enumerator import (PyEnumerator,
@@ -286,20 +287,17 @@ def test_plan_dedups_shared_companions():
     assert [op[0] for op in creates] == [
         "/dev/nvidia0", "/dev/nvidiactl", "/dev/nvidia-uvm",
         "/dev/nvidia-uvm-tools", "/dev/nvidia1"]
-    assert plan.batch_majmins(plans) == [(195, 0), (195, 255), (510, 0),
-                                         (510, 1), (195, 1)]
+    assert bpf.chip_majmins(chips) == [(195, 0), (195, 255), (510, 0),
+                                       (510, 1), (195, 1)]
 
 
 def test_one_gpu_detach_keeps_the_shared_companions():
-    """Detaching GPU 1 while GPU 0 stays unlinks and revokes only GPU 1's
-    own node; the last GPU out takes the companions with it."""
-    p0, p1 = (plan.ChipPlan.for_chip(c) for c in make_chips(2))
-    assert plan.batch_removes([p1], remaining=[p0]) == ["/dev/nvidia1"]
-    assert plan.batch_revokes([p1], remaining=[p0]) == [(195, 1)]
-    assert plan.batch_removes([p0], remaining=[]) == [
-        "/dev/nvidia0", "/dev/nvidiactl", "/dev/nvidia-uvm",
-        "/dev/nvidia-uvm-tools"]
-    assert plan.batch_revokes([p0], remaining=[]) == [
+    """Detaching GPU 1 while GPU 0 stays revokes only GPU 1's own node;
+    the last GPU out takes the companions with it (the rule the mounter
+    unlinks nodes by, tests/test_torch_actuation.py)."""
+    g0, g1 = make_chips(2)
+    assert bpf.revoked_majmins([g1], [g0]) == [(195, 1)]
+    assert bpf.revoked_majmins([g0], []) == [
         (195, 0), (195, 255), (510, 0), (510, 1)]
 
 

@@ -74,6 +74,54 @@ def test_device_layer_and_selftest_are_checked(module):
     assert REPO / module in PORT_FILES
 
 
+NODE_MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts)
+    for sub in ("actuation", "collector") for p in
+    (REPO / "gpumounter_tpu_torch" / sub).glob("*.py")
+    if p.name != "__init__.py")
+
+
+def test_node_modules_import_without_grpc_or_protobuf():
+    """The collector, the fake PodResources client, the fake kubelet
+    (import only) and every actuation module import in an interpreter
+    where ``grpc`` and ``google.protobuf`` cannot be imported, and the
+    fake client lists: the node half runs where neither package is."""
+    assert "gpumounter_tpu_torch.actuation.gate" in NODE_MODULES
+    assert "gpumounter_tpu_torch.collector.fake_kubelet" in NODE_MODULES
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'grpc' or name.startswith('grpc.') or \\\n"
+        "                name.startswith('google.protobuf'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "try:\n"
+        "    import grpc\n"
+        "    sys.exit('grpc was not blocked')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        f"for m in {NODE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from gpumounter_tpu_torch.collector.podresources import "
+        "FakePodResourcesClient\n"
+        "c = FakePodResourcesClient()\n"
+        "c.assign('default', 'p', ['GPU-1'])\n"
+        "pod = c.list_pods().pod_resources[0]\n"
+        "assert (pod.name, pod.containers[0].devices[0].device_ids) == "
+        "('p', ['GPU-1'])\n"
+        "bad = [m for m in sys.modules if m == 'grpc' or "
+        "m.startswith(('grpc.', 'google.protobuf'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+
+
 def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
     """The entry points of the parallel schemes, the distributed bring-up,
     the elastic harness and the federation member default to the GPU and
