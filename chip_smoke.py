@@ -71,7 +71,19 @@ Phases, each printing one JSON line on stdout:
      a container that held them before the attach), 20 timed cycles of
      ``update_status``, grant + mount and revoke + unmount, and the BPF
      program's length with ``BpfGate.supported()``;
- 11. the kernels line (each entry names the device function and the line
+ 11. worker_attach — the worker half of an attach on the same device layer
+     (``gpumounter_tpu_torch/testing/worker_attach.py``): ``AddGPU`` over
+     gRPC to the port's worker (``build_server``, parking executor), a slave
+     pod requesting ``nvidia.com/gpu`` in an HTTP apiserver facade read
+     through the REST client and its informer, a scripted scheduler
+     assigning the card's NVML UUID through a PodResources gRPC server, the
+     card's node and companions granted by the v1 gate and made by the
+     resident agent (fake nodes; its fallback count must stay 0), the
+     journal committed, ``RemoveGPU`` answering ``GPUBusy`` with the PID of
+     a child holding a CUDA context, the detach after it exits, a container
+     that held the companions keeping them, and 20 timed attach/detach
+     pairs with the apiserver requests of each;
+ 12. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -1421,6 +1433,35 @@ def node_attach(card: str) -> dict:
             "checks": checks, "ok": all(checks.values())}
 
 
+# The worker_attach phase's fixture tree, beside node_attach's.
+WORKER_ATTACH_DIR = os.path.join(REPO, "build", "worker_attach")
+
+
+def worker_attach(card: str) -> dict:
+    """The worker half of an attach on this machine's real device layer,
+    over real sockets (``testing/worker_attach.py``): ``AddGPU`` over gRPC
+    to the port's worker, a slave pod requesting ``nvidia.com/gpu`` in an
+    HTTP apiserver facade, scheduled by a script that assigns the card's
+    NVML UUID through a PodResources gRPC server, the listing mapped to
+    ``/dev/nvidiaN``, the v1 gate and the nodes in a fixture container, a
+    child holding a CUDA context making ``RemoveGPU`` answer ``GPUBusy``,
+    the detach after it exits, then 20 timed attach/detach pairs with the
+    apiserver requests of each. The resident agent must not fall back."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.worker_attach import (
+        cuda_holder, run_worker_attach)
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_worker_attach(WORKER_ATTACH_DIR, PyEnumerator(HostPaths()),
+                               cuda_holder)
+    checks = report["checks"]
+    checks["card_is_an_nvidia_smi_uuid"] = (
+        report.get("card", {}).get("uuid") in smi_uuids)
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1624,6 +1665,7 @@ def main() -> int:
     phase("selftest", selftest)
     phase("device_layer", lambda: device_layer(probe))
     phase("node_attach", lambda: node_attach(card))
+    phase("worker_attach", lambda: worker_attach(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

@@ -1033,15 +1033,15 @@ class DeviceGate:
         }
 
 
-def build_gate(controller, mode: str = "auto", node_name: str = "",
-               journal=None) -> DeviceGate:
-    """Production wiring: pick the strongest backend for this node under
-    ``mode="auto"`` (``TPU_GATE``), or the byte-for-byte legacy
-    passthrough under ``mode="legacy"``. A native stack that cannot load
-    (no lib, unsupported kernel, no CAP_BPF) degrades to legacy — LOUD,
-    counted, but never unenforced. (The worker's ``Settings`` will carry
-    the mode and node name; until it is ported they are arguments.)"""
-    if mode == "legacy":
+def build_gate(settings, controller, journal=None) -> DeviceGate:
+    """Production wiring (worker/main.py): pick the strongest backend for
+    this node under ``settings.gate_mode == "auto"`` (``TPU_GATE``), or the
+    byte-for-byte legacy passthrough under ``"legacy"``; the gate's node
+    name is ``settings.node_name`` (``NODE_NAME``). A native stack that
+    cannot load (no lib, unsupported kernel, no CAP_BPF) degrades to
+    legacy — LOUD, counted, but never unenforced."""
+    node_name = settings.node_name
+    if settings.gate_mode == "legacy":
         return DeviceGate(controller, None, mode="legacy",
                           node_name=node_name)
     backend: GateBackend | None = None

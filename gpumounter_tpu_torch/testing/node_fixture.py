@@ -34,7 +34,7 @@ from gpumounter_tpu_torch.actuation.mount import GPUMounter
 from gpumounter_tpu_torch.actuation.nsenter import ProcRootActuator
 from gpumounter_tpu_torch.device.enumerator import Enumerator
 from gpumounter_tpu_torch.device.plan import NodePlanCache
-from gpumounter_tpu_torch.utils.config import HostPaths
+from gpumounter_tpu_torch.utils.config import HostPaths, Settings
 
 
 class FixtureContainer:
@@ -106,7 +106,8 @@ class FixtureNode:
             os.makedirs(path, exist_ok=True)
         self.controller = CgroupDeviceController(self.host, driver="cgroupfs",
                                                  version=1)
-        self.gate = build_gate(self.controller, node_name="fixture-node")
+        self.gate = build_gate(Settings(node_name="fixture-node"),
+                               self.controller)
         self.actuator = ProcRootActuator(self.host, fake_nodes=True)
 
     def container(self, name: str, pids: list[int],

@@ -50,6 +50,45 @@ PODRESOURCES_CONNECT_TIMEOUT_S = 10.0
 # The namespace of the slave pods that hold GPUs for their owners.
 DEFAULT_POOL_NAMESPACE = "gpu-pool"
 
+# --- Slave pods (ref pkg/util/gpu/allocator/allocator.go:192-231) -------------
+# ``<owner>-slave-pod-<hex>``, labelled ``app: gpu-pool`` as the reference
+# labels its GPU slave pods; the ownership, mount-type, request and
+# transaction labels are the control plane's.
+SLAVE_POD_INFIX = "-slave-pod-"
+SLAVE_POD_LABEL_KEY = "app"
+SLAVE_POD_LABEL_VALUE = "gpu-pool"
+MOUNT_TYPE_LABEL_KEY = "tpumounter.io/mount-type"
+OWNER_POD_LABEL_KEY = "tpumounter.io/owner-pod"
+OWNER_NAMESPACE_LABEL_KEY = "tpumounter.io/owner-namespace"
+# A same-named recreated owner must not adopt stale slave pods.
+OWNER_UID_LABEL_KEY = "tpumounter.io/owner-uid"
+TXN_LABEL_KEY = "tpumounter.io/txn-id"
+# A retried attach adopts the slave pods its earlier attempt created.
+REQUEST_ID_LABEL_KEY = "tpumounter.io/request-id"
+# Warm (pre-scheduled, unowned) slave pods of the warm pool.
+WARM_POD_LABEL_KEY = "tpumounter.io/warm"
+WARM_POD_LABEL_VALUE = "true"
+WARM_POD_NAME_PREFIX = "warm"
+WARM_POD_NODE_LABEL_KEY = "tpumounter.io/node"
+SLAVE_POD_IMAGE = "registry.k8s.io/pause:3.9"
+# Slice-repair spares: pods the master may grow a repaired gang onto.
+SLICE_SPARE_LABEL_KEY = "tpumounter.io/slice-spare"
+SLICE_SPARE_LABEL_VALUE = "true"
+
+# --- GKE GPU node labels (allocator/topology.py) ------------------------------
+# The accelerator of a GKE GPU node pool (e.g. ``nvidia-h100-80gb``); the
+# node's allocatable ``nvidia.com/gpu`` is the GPU count.
+LABEL_GPU_ACCELERATOR = "cloud.google.com/gke-accelerator"
+# Stamped on slave pods so a mount's accelerator is readable from the pool
+# namespace without a node round trip.
+GPU_ACCELERATOR_LABEL_KEY = "tpumounter.io/gpu-accelerator"
+
+# --- Ports and worker discovery (ref worker main.go:24 :1200, master :8080) --
+MASTER_HTTP_PORT = 8080
+WORKER_GRPC_PORT = 1200
+WORKER_NAMESPACE = "kube-system"
+WORKER_LABEL_SELECTOR = "app=gpu-mounter-worker"
+
 
 class MountType(str, enum.Enum):
     """How a pod holds its devices (ref ``pkg/util/gpu/types.go:19-26``)."""
@@ -58,6 +97,24 @@ class MountType(str, enum.Enum):
     SINGLE = "single-mount"
     NONE = "no-mount"
     UNKNOWN = "unknown-mount"
+
+
+class AddResult(enum.IntEnum):
+    """Wire values of ``AddGPUResponse.result`` (ref api.proto:11-19)."""
+
+    SUCCESS = 0
+    INSUFFICIENT_GPU = 1
+    POD_NOT_FOUND = 2
+
+
+class RemoveResult(enum.IntEnum):
+    """Wire values of ``RemoveGPUResponse.result`` (ref api.proto:32-41).
+    Tag 3 is skipped, as in the reference."""
+
+    SUCCESS = 0
+    GPU_BUSY = 1
+    POD_NOT_FOUND = 2
+    GPU_NOT_FOUND = 4
 
 
 # --- Telemetry and the device gate (environment variables) --------------------
@@ -74,3 +131,87 @@ ENV_FLIGHT_INTERVAL_S = "TPU_FLIGHT_INTERVAL_S"
 # Device-gate mode: "auto" (the strongest backend the node supports) or
 # "legacy" (direct cgroup-controller calls, no gate state).
 ENV_GATE = "TPU_GATE"
+
+# --- The worker's knobs (environment variables; utils/config.py) --------------
+# The names are the control plane's, so one deployment configures both.
+ENV_POOL_NAMESPACE = "TPU_POOL_NAMESPACE"
+ENV_CGROUP_DRIVER = "CGROUP_DRIVER"
+# Warm-pool sizing ("entire:4=1,single:1=2"); the pool itself is not
+# ported yet, so a set value is logged and ignored (worker/main.py).
+ENV_WARM_POOL = "TPU_WARM_POOL"
+ENV_WARM_POOL_INTERVAL_S = "TPU_WARM_POOL_INTERVAL_S"
+# Crash-safe attach journal (worker/journal.py); "" disables it.
+ENV_JOURNAL_PATH = "TPU_JOURNAL_PATH"
+DEFAULT_JOURNAL_PATH = "/var/lib/tpu-mounter/attach-journal.jsonl"
+# Shared pod informer (k8s/informer.py): "0" reverts reads to direct
+# apiserver calls; the fence timeout bounds a read-your-writes wait.
+ENV_INFORMER = "TPU_INFORMER"
+ENV_INFORMER_FENCE_TIMEOUT_S = "TPU_INFORMER_FENCE_TIMEOUT_S"
+# Resident actuation agent (actuation/agent.py): "0" reverts to direct
+# per-call actuation.
+ENV_AGENT = "TPU_AGENT"
+# The enumerator's inventory cache (PyEnumerator cache_ttl_s).
+ENV_ENUM_CACHE_TTL_S = "TPU_ENUM_CACHE_TTL_S"
+DEFAULT_ENUM_CACHE_TTL_S = 5.0
+# How long a detach may be resolved from the record cached at attach time.
+ENV_ATTACH_CACHE_TTL_S = "TPU_ATTACH_CACHE_TTL_S"
+DEFAULT_ATTACH_CACHE_TTL_S = 600.0
+# The worker's gRPC executor: active-thread budget, parking mode ("0" =
+# the fixed thread pool) and the in-flight ceiling.
+ENV_GRPC_WORKERS = "TPU_GRPC_WORKERS"
+DEFAULT_GRPC_WORKERS = 8
+ENV_GRPC_ASYNC = "TPU_GRPC_ASYNC"
+ENV_GRPC_MAX_PARKED = "TPU_GRPC_MAX_PARKED"
+DEFAULT_GRPC_MAX_PARKED = 4096
+# Graceful drain (worker/drain.py) and the spot-termination notice file.
+ENV_DRAIN_TIMEOUT_S = "TPU_DRAIN_TIMEOUT_S"
+DEFAULT_DRAIN_TIMEOUT_S = 30.0
+ENV_SPOT_TERMINATION_FILE = "TPU_SPOT_TERMINATION_FILE"
+# The draining refusal's gRPC detail starts with this marker.
+DRAINING_DETAIL_PREFIX = "draining:"
+# Detach cause (gRPC metadata, master -> worker).
+DETACH_CAUSE_METADATA_KEY = "x-detach-cause"
+# Per-owner-pod mesh-generation files the worker stamps on each actuation.
+ENV_MESH_GEN_DIR = "TPU_MESH_GEN_DIR"
+# The usage sampler and the topology view (Queue 1 item 12 of the port):
+# the worker reads the knobs and serves /utilz and /topoz as disabled.
+ENV_USAGE = "TPU_USAGE"
+ENV_USAGE_INTERVAL_S = "TPU_USAGE_INTERVAL_S"
+DEFAULT_USAGE_INTERVAL_S = 5.0
+ENV_TOPOLOGY = "TPU_TOPOLOGY"
+
+# --- The master's knobs, kept in ``Settings`` beside the worker's -------------
+ENV_QUOTAS = "TPU_QUOTAS"
+ENV_QUOTA_BURST = "TPU_QUOTA_BURST"
+ENV_LEASE_TTL_S = "TPU_LEASE_TTL_S"
+ENV_QUEUE_TIMEOUT_S = "TPU_QUEUE_TIMEOUT_S"
+ENV_QUEUE_DEPTH = "TPU_QUEUE_DEPTH"
+ENV_WAITER_INDEX = "TPU_WAITER_INDEX"
+ENV_STORE_GROUP_COMMIT = "TPU_STORE_GROUP_COMMIT"
+DEFAULT_STORE_GROUP_COMMIT_S = 0.01
+ENV_MASTER_SHARDS = "TPU_MASTER_SHARDS"
+ENV_ELECTION = "TPU_ELECTION"
+ENV_ELECTION_RENEW_S = "TPU_ELECTION_RENEW_S"
+ENV_ELECTION_TTL_S = "TPU_ELECTION_TTL_S"
+DEFAULT_ELECTION_RENEW_S = 2.0
+DEFAULT_ELECTION_TTL_S = 6.0
+ENV_INTENT_STORE = "TPU_INTENT_STORE"
+ENV_REPLICA_ID = "TPU_REPLICA_ID"
+ENV_ADVERTISE_URL = "TPU_ADVERTISE_URL"
+ENV_SHARD_FORWARD = "TPU_SHARD_FORWARD"
+ENV_GANG_HOLD_S = "TPU_GANG_HOLD_S"
+DEFAULT_GANG_HOLD_S = 15.0
+ENV_RESIZE_BARRIER_TIMEOUT_S = "TPU_RESIZE_BARRIER_TIMEOUT_S"
+ENV_IDLE_LEASE_S = "TPU_IDLE_LEASE_S"
+DEFAULT_IDLE_LEASE_S = 300.0
+ENV_DEFRAG_MODE = "TPU_DEFRAG_MODE"
+ENV_DEFRAG_HYSTERESIS_TICKS = "TPU_DEFRAG_HYSTERESIS_TICKS"
+DEFAULT_DEFRAG_HYSTERESIS_TICKS = 3
+ENV_DEFRAG_IDLE_DUTY_MAX = "TPU_DEFRAG_IDLE_DUTY_MAX"
+DEFAULT_DEFRAG_IDLE_DUTY_MAX = 0.05
+ENV_DEFRAG_MAX_INFLIGHT = "TPU_DEFRAG_MAX_INFLIGHT"
+DEFAULT_DEFRAG_MAX_INFLIGHT = 1
+ENV_DEFRAG_BUDGET = "TPU_DEFRAG_BUDGET"
+DEFAULT_DEFRAG_BUDGET = 4
+ENV_SLICE_REPAIR_BUDGET = "TPU_SLICE_REPAIR_BUDGET"
+DEFAULT_SLICE_REPAIR_BUDGET = 3

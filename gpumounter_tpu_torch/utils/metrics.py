@@ -337,6 +337,19 @@ class Registry:
     """Process-wide metric set for one binary (worker or master)."""
 
     def __init__(self):
+        # The worker's attach and detach (worker/service.py): end-to-end
+        # latency and calls by result, under the control plane's names
+        # and help texts (the dashboards select on them).
+        self.attach_latency = Histogram(
+            "tpumounter_attach_seconds",
+            "End-to-end AddTPU latency (allocation + actuation)")
+        self.detach_latency = Histogram(
+            "tpumounter_detach_seconds",
+            "End-to-end RemoveTPU latency")
+        self.attach_results = Counter(
+            "tpumounter_attach_total", "AddTPU calls by result")
+        self.detach_results = Counter(
+            "tpumounter_detach_total", "RemoveTPU calls by result")
         # Collector snapshots (collector/collector.py): GPUs by allocation
         # state. A GPU node no driver source names ("unidentified") can
         # never be allocated and is never counted free.
@@ -344,6 +357,23 @@ class Registry:
             "tpumounter_node_chips",
             "Chips on this node by allocation state "
             "(refreshed on every collector snapshot)")
+        # Orphaned slave pods the reconciler deleted (worker/reconciler.py);
+        # the labelless series is seeded at 0 so increase() sees the first.
+        self.orphans_reclaimed = Counter(
+            "tpumounter_orphans_reclaimed_total",
+            "Orphaned slave pods deleted by the reconciler (their owner "
+            "pod vanished while holding chips — normal GC, but a rising "
+            "rate means workloads die mid-hold)")
+        self.orphans_reclaimed.inc(0.0)
+        # Attach and detach by phase (utils/trace.py Trace.finish).
+        self.attach_phase = LabeledHistogram(
+            "tpumounter_attach_phase_seconds",
+            "AddTPU latency by phase "
+            "(worker: policy/allocate/resolve/actuate, rollback on mount "
+            "failure; master slice txns: validate/fanout/rollback)")
+        self.detach_phase = LabeledHistogram(
+            "tpumounter_detach_phase_seconds",
+            "RemoveTPU latency by phase (resolve/actuate/cleanup)")
         # Every apiserver / kubelet PodResources round-trip, by verb and
         # resource (utils/trace.py k8s_call).
         self.k8s_latency = LabeledHistogram(
@@ -367,6 +397,29 @@ class Registry:
             "tpumounter_circuit_state",
             "Circuit breaker state per target "
             "(0 closed, 1 half-open, 2 open)")
+        # Attach journal (worker/journal.py): boot replays by outcome.
+        self.journal_replays = Counter(
+            "tpumounter_journal_replays_total",
+            "Attach-journal records replayed at worker startup, by outcome")
+        # Shared pod informer (k8s/informer.py): applied watch events,
+        # stream deaths that forced a re-LIST, and the read handle's
+        # cache hits and fall-through misses.
+        self.informer_events = Counter(
+            "tpumounter_informer_events_total",
+            "Watch events applied to the shared pod informer cache, by "
+            "event type")
+        self.informer_watch_restarts = Counter(
+            "tpumounter_informer_watch_restarts_total",
+            "Informer watch streams that died beyond the resume budget "
+            "and re-seeded from a fresh LIST")
+        self.informer_watch_restarts.inc(0.0)
+        self.cache_hits = Counter(
+            "tpumounter_cache_hits_total",
+            "Pod reads served from the shared informer cache, by verb")
+        self.cache_misses = Counter(
+            "tpumounter_cache_misses_total",
+            "Covered pod reads that fell through to the apiserver, by "
+            "verb and reason")
         # Fused actuation (actuation/mount.py): one namespace crossing per
         # container; batches/ops give the fusion factor.
         self.actuation_batches = Counter(
@@ -381,6 +434,36 @@ class Registry:
             "tpumounter_actuation_batch_size",
             "Size of the most recent device-node actuation batch, by op "
             "(create/remove)")
+        # Resident actuation agent (actuation/agent.py): plans and ops it
+        # ran, faults degraded to the fallback actuator (by reason; a
+        # non-zero rate means the agent is unhealthy), namespace-handle
+        # revalidations and the handles cached.
+        self.agent_batches = Counter(
+            "tpumounter_actuation_agent_batches_total",
+            "Device-node plans executed by the resident actuation agent, "
+            "by op (create/remove)")
+        self.agent_batch_ops = Counter(
+            "tpumounter_actuation_agent_ops_total",
+            "Individual device-node operations executed by the resident "
+            "actuation agent")
+        self.agent_fallbacks = Counter(
+            "tpumounter_actuation_agent_fallbacks_total",
+            "Agent faults degraded to the fallback actuator, by reason")
+        self.agent_fallbacks.inc(0.0, reason="stale_ns_fd")
+        self.agent_revalidations = Counter(
+            "tpumounter_actuation_agent_revalidations_total",
+            "Cached namespace-handle identity checks, by outcome "
+            "(ok/stale)")
+        self.agent_ns_fds = Gauge(
+            "tpumounter_actuation_agent_ns_fds",
+            "Namespace handles currently cached by the resident "
+            "actuation agent")
+        # Parking executor (utils/parking.py): worker RPC handler threads
+        # parked in a slow wait with their active slot released.
+        self.worker_rpc_parked = Gauge(
+            "tpumounter_worker_rpc_parked",
+            "Worker RPC handler threads parked in a slow wait (active "
+            "slot released back to the executor budget)")
         # Telemetry plane (utils/events.py): lifecycle events by kind.
         self.events_emitted = Counter(
             "tpumounter_events_total",

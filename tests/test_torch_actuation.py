@@ -24,6 +24,7 @@ from gpumounter_tpu_torch.actuation.gate import (CgroupV1GateBackend,
                                                  DeviceGate,
                                                  FakeGateBackend, build_gate)
 from gpumounter_tpu_torch.device.fake import FAKE_UVM_MAJOR, make_chips
+from gpumounter_tpu_torch.utils.config import Settings
 from gpumounter_tpu_torch.utils.errors import (ActuationError, CgroupError,
                                                DeviceBusyError)
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
@@ -508,9 +509,10 @@ def test_v1_gate_backend_diffs_against_its_shadow(tmp_path):
 
 def test_build_gate_picks_the_backend(tmp_path):
     rig = Rig(TORCH, tmp_path, gate="legacy")
-    gate = build_gate(rig.ctrl, node_name="n")
+    gate = build_gate(Settings(node_name="n"), rig.ctrl)
     assert gate.live and isinstance(gate.backend, CgroupV1GateBackend)
-    assert not build_gate(rig.ctrl, mode="legacy").live
+    assert gate.node_name == "n"
+    assert not build_gate(Settings(gate_mode="legacy"), rig.ctrl).live
 
     class NoBpf:
         def supported(self):
@@ -519,7 +521,7 @@ def test_build_gate_picks_the_backend(tmp_path):
         rig.host, driver="cgroupfs", version=2, bpf_gate=NoBpf())
     before = REGISTRY.gate_syncs.value(backend="native-map",
                                        outcome="fault")
-    gate = build_gate(v2)
+    gate = build_gate(Settings(), v2)
     assert not gate.live and gate.mode == "legacy"
     assert REGISTRY.gate_syncs.value(backend="native-map",
                                      outcome="fault") == before + 1

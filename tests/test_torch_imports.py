@@ -122,6 +122,104 @@ def test_node_modules_import_without_grpc_or_protobuf():
     assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
 
 
+WORKER_MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts)
+    for sub in ("k8s", "allocator") for p in
+    (REPO / "gpumounter_tpu_torch" / sub).glob("*.py")
+    if p.name != "__init__.py") + [
+    "gpumounter_tpu_torch.allocator",
+    "gpumounter_tpu_torch.utils.config",
+    "gpumounter_tpu_torch.utils.parking",
+    "gpumounter_tpu_torch.worker.drain",
+    "gpumounter_tpu_torch.worker.journal",
+    "gpumounter_tpu_torch.worker.reconciler",
+    "gpumounter_tpu_torch.worker.service",
+    "gpumounter_tpu_torch.testing.http_apiserver",
+    "gpumounter_tpu_torch.testing.sim"]
+
+
+def _run_blocked(blocked: tuple[str, ...], body: str):
+    """Run ``body`` in a fresh interpreter where importing any module whose
+    name starts with one of ``blocked`` raises ImportError; it exits 1 if
+    any of them was loaded all the same."""
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        f"BLOCKED = {blocked!r}\n"
+        "def hit(name):\n"
+        "    return any(name == b or name.startswith(b + '.')\n"
+        "               for b in BLOCKED)\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if hit(name):\n"
+        "            raise ModuleNotFoundError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        + body +
+        "bad = [m for m in sys.modules if hit(m)]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO, env=env, timeout=300)
+
+
+def test_worker_modules_import_without_grpc_or_protobuf():
+    """The Kubernetes layer, the allocator, the service and the rest of the
+    worker below its gRPC adapter import, and a rig attaches and detaches,
+    where ``grpc`` and ``google.protobuf`` (and so the ``_pb2`` modules)
+    cannot be imported: only ``worker/grpc_server.py`` and what serves it
+    speak the wire."""
+    assert "gpumounter_tpu_torch.k8s.informer" in WORKER_MODULES
+    assert "gpumounter_tpu_torch.allocator.topology" in WORKER_MODULES
+    body = (
+        f"for m in {WORKER_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import tempfile\n"
+        "from gpumounter_tpu_torch.testing.sim import WorkerRig\n"
+        "from gpumounter_tpu_torch.utils.config import HostPaths\n"
+        "root = tempfile.mkdtemp()\n"
+        "import os\n"
+        "for d in ('dev', 'proc', 'sys/fs/cgroup'):\n"
+        "    os.makedirs(os.path.join(root, d))\n"
+        "host = HostPaths(dev_root=root + '/dev', proc_root=root + '/proc',\n"
+        "                 sys_root=root + '/sys',\n"
+        "                 cgroup_root=root + '/sys/fs/cgroup')\n"
+        "rig = WorkerRig(host, informer=True)\n"
+        "assert rig.service.add_gpu('workload', 'default', 2, False)"
+        ".result == 0\n"
+        "assert rig.service.remove_gpu('workload', 'default', [], False)"
+        ".result == 0\n"
+        "rig.close()\n")
+    proc = _run_blocked(("grpc", "google.protobuf",
+                         "gpumounter_tpu_torch.api.gpu_mount_pb2"), body)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+
+
+def test_yaml_only_on_the_kubeconfig_path():
+    """No port module imports PyYAML when it is imported; the kubeconfig
+    client is the one path that needs it, and says so when it is missing."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT_FILES if p.name != "chip_smoke.py")
+    body = (
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from gpumounter_tpu_torch.k8s.client import KubeconfigKubeClient\n"
+        "from gpumounter_tpu_torch.utils.errors import K8sApiError\n"
+        "import tempfile, os\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'kubeconfig')\n"
+        "open(path, 'w').write('apiVersion: v1')\n"
+        "try:\n"
+        "    KubeconfigKubeClient(path)\n"
+        "    sys.exit('kubeconfig parsed without PyYAML')\n"
+        "except K8sApiError as e:\n"
+        "    assert 'PyYAML' in str(e), e\n")
+    proc = _run_blocked(("yaml",), body)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+
+
 def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
     """The entry points of the parallel schemes, the distributed bring-up,
     the elastic harness and the federation member default to the GPU and

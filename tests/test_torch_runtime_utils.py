@@ -515,6 +515,38 @@ def test_port_families_are_the_control_planes():
             assert fam.help == jax[fam.name].help, fam.name
 
 
+def test_the_worker_families_are_registered():
+    """What the worker's modules record into: attach and detach, their
+    phases, the journal, the informer and its cache, the reconciler, the
+    resident agent and the parking executor, with the pre-seeded series
+    the control plane seeds."""
+    from gpumounter_tpu_torch.utils.metrics import Registry
+    reg = Registry()
+    names = {f.name for f in reg.families()}
+    assert {
+        "tpumounter_attach_seconds", "tpumounter_detach_seconds",
+        "tpumounter_attach_total", "tpumounter_detach_total",
+        "tpumounter_attach_phase_seconds",
+        "tpumounter_detach_phase_seconds",
+        "tpumounter_orphans_reclaimed_total",
+        "tpumounter_journal_replays_total",
+        "tpumounter_informer_events_total",
+        "tpumounter_informer_watch_restarts_total",
+        "tpumounter_cache_hits_total", "tpumounter_cache_misses_total",
+        "tpumounter_actuation_agent_batches_total",
+        "tpumounter_actuation_agent_ops_total",
+        "tpumounter_actuation_agent_fallbacks_total",
+        "tpumounter_actuation_agent_revalidations_total",
+        "tpumounter_actuation_agent_ns_fds",
+        "tpumounter_worker_rpc_parked"} <= names
+    text = reg.render_text()
+    for seeded in ("tpumounter_orphans_reclaimed_total 0",
+                   "tpumounter_informer_watch_restarts_total 0",
+                   'tpumounter_actuation_agent_fallbacks_total'
+                   '{reason="stale_ns_fd"} 0'):
+        assert seeded in text.splitlines(), seeded
+
+
 def test_the_two_packages_keep_separate_registries():
     from gpumounter_tpu.utils.events import EVENTS as JAX_EVENTS
     from gpumounter_tpu.utils.flight import RECORDER as JAX_RECORDER
