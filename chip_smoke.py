@@ -83,7 +83,23 @@ Phases, each printing one JSON line on stdout:
      a child holding a CUDA context, the detach after it exits, a container
      that held the companions keeping them, and 20 timed attach/detach
      pairs with the apiserver requests of each;
- 12. the kernels line (each entry names the device function and the line
+ 12. master_attach — the control-plane half of an attach on the same device
+     layer (``gpumounter_tpu_torch/testing/master_attach.py``): the
+     reference's ``GET /addgpu/.../gpu/1/isEntireMount/true`` over loopback
+     HTTP to the port's master (``MasterGateway``: the attach broker, its
+     lease, the worker directory, the multiplexed front) in front of the
+     worker of phase 11, answered SUCCESS with the card's nvidia-smi UUID
+     and ``/dev/nvidiaN``; the gate and the nodes in the fixture
+     container; the in-pod proof — a child with ``CUDA_VISIBLE_DEVICES``
+     set to the returned UUID launching the whole-K ``flash_fwd`` at a
+     small bf16 shape, held against its plain version at the parity
+     tolerances — during which ``POST /removegpu/...`` answers 409
+     ``GPU_BUSY`` with its PID; the detach after it exits; 20 timed HTTP
+     attach/detach pairs with the master's spans beside the worker's and
+     the apiserver requests of each; one ``/fleetz`` (the worker fresh)
+     and one ``/metrics`` read (every attach counted by master and
+     worker); the resident agent's fallbacks 0;
+ 13. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -1462,6 +1478,29 @@ def worker_attach(card: str) -> dict:
             "ok": all(checks.values())}
 
 
+MASTER_ATTACH_DIR = os.path.join(REPO, "build", "master_attach")
+
+
+def master_attach(card: str) -> dict:
+    """The control-plane half of an attach over HTTP on this machine's real
+    device layer, with the in-pod proof on the attached card
+    (``testing/master_attach.py``). The returned UUID must be one
+    nvidia-smi names."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.master_attach import (
+        cuda_proof, run_master_attach)
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_master_attach(MASTER_ATTACH_DIR, PyEnumerator(HostPaths()),
+                               cuda_proof)
+    checks = report["checks"]
+    checks["card_is_an_nvidia_smi_uuid"] = (
+        report.get("card", {}).get("uuid") in smi_uuids)
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1666,6 +1705,7 @@ def main() -> int:
     phase("device_layer", lambda: device_layer(probe))
     phase("node_attach", lambda: node_attach(card))
     phase("worker_attach", lambda: worker_attach(card))
+    phase("master_attach", lambda: master_attach(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

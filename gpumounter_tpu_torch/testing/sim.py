@@ -11,8 +11,10 @@ control loop the real cluster runs for the allocator's slave-pod trick
 another (a real node's :class:`~gpumounter_tpu_torch.device.enumerator.
 PyEnumerator`): the scheduler hands out whatever UUIDs it enumerates.
 
-``WorkerRig`` adds the worker stack on a fixture host tree. ``LiveStack``
-(a real HTTP master in front) waits for the master's port.
+``WorkerRig`` adds the worker stack on a fixture host tree; ``LiveStack``
+puts a real gRPC worker and a real HTTP master in front of it. The HA and
+multi-node stacks (``MultiMasterStack``, ``MultiNodeStack``) arrive with
+the planes they exercise (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -63,6 +65,22 @@ def make_gpu_node(name="node-a", accelerator="nvidia-h100-80gb", gpus=8):
         node["metadata"]["labels"] = {
             consts.LABEL_GPU_ACCELERATOR: accelerator}
     return node
+
+
+def worker_pod(node, ip, name="w1", grpc_port: int | None = None):
+    """A Running gpu-mounter-worker pod as the master's discovery sees it.
+    ``grpc_port`` sets the per-pod port-override annotation (local stacks
+    run several workers on one IP)."""
+    pod = {
+        "metadata": {"name": name, "namespace": consts.WORKER_NAMESPACE,
+                     "labels": {"app": "gpu-mounter-worker"}},
+        "spec": {"nodeName": node},
+        "status": {"phase": "Running", "podIP": ip},
+    }
+    if grpc_port is not None:
+        from gpumounter_tpu_torch.master.discovery import PORT_ANNOTATION
+        pod["metadata"]["annotations"] = {PORT_ANNOTATION: str(grpc_port)}
+    return pod
 
 
 class ClusterSim:
@@ -204,8 +222,7 @@ class WorkerRig:
     ``<proc_root>/<pid>/root/dev`` — the bench/verify configuration).
 
     The options are the control plane's rig's, less ``usage``/``topo``
-    (the usage sampler and topology view are not ported yet); the warm
-    pool is not ported either, so ``warm_pool`` raises.
+    (the usage sampler and topology view are not ported yet).
     """
 
     def __init__(self, fake_host, n_chips=4, pid=4242, actuator="recording",
@@ -215,9 +232,6 @@ class WorkerRig:
                  informer: bool = False, agent: bool = False,
                  gate=False, grpc_workers: int | None = None,
                  grpc_async: bool | None = None):
-        if warm_pool:
-            raise NotImplementedError(
-                "the warm pool (worker/pool.py) is not ported yet")
         from gpumounter_tpu_torch.actuation.cgroup import CgroupDeviceController
         from gpumounter_tpu_torch.actuation.mount import GPUMounter
         from gpumounter_tpu_torch.actuation.nsenter import (ProcRootActuator,
@@ -324,6 +338,16 @@ class WorkerRig:
         self.allocator = GPUAllocator(self.sim.collector, self.sim.kube,
                                       self.sim.settings, reads=reads)
         self.reads = self.allocator.reads
+        # Warm pool (worker/pool.py): ``warm_pool={"entire:4": 1}`` keeps
+        # one 4-GPU entire-mount slave pod pre-scheduled. The loop is NOT
+        # started — tests drive scan_once() for determinism.
+        self.pool = None
+        if warm_pool:
+            from gpumounter_tpu_torch.worker.pool import PoolManager
+            self.sim.settings.warm_pool_sizes = dict(warm_pool)
+            self.sim.settings.warm_pool_enabled = True
+            self.pool = PoolManager(self.allocator, self.sim.kube,
+                                    self.sim.settings)
         # Crash-safe attach journal on the fixture tree (created above,
         # before the gate) — enabled by default so every rig-driven
         # attach exercises the production write-ahead path; chaos tests
@@ -331,6 +355,7 @@ class WorkerRig:
         # journal (testing/chaos.py).
         self.service = GPUMountService(self.allocator, self.mounter,
                                        self.sim.kube, self.sim.settings,
+                                       pool=self.pool,
                                        journal=self.journal)
 
     def provision_container(self, pod: objects.Pod,
@@ -354,9 +379,97 @@ class WorkerRig:
             next_pid += 1
         return out
 
+    def fill_warm_pool(self, timeout_s: float = 30.0) -> None:
+        """Drive pool reconciliation until every configured key holds its
+        target count of Running (adoptable) warm pods."""
+        assert self.pool is not None, "rig built without warm_pool="
+        deadline = time.monotonic() + timeout_s
+        while True:
+            self.pool.scan_once()
+            status = self.pool.status()
+            if all(v["running"] >= v["target"]
+                   for v in status["keys"].values()):
+                return
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"warm pool not filled: {status}")
+            time.sleep(0.05)
+
     def close(self) -> None:
         if self.agent is not None:
             self.agent.stop()
         if self.informer is not None:
             self.informer.stop()
         self.sim.close()
+
+
+class LiveStack:
+    """Real gRPC worker + real HTTP master over a WorkerRig, on localhost.
+    ``base`` is the master's URL; close() tears everything down."""
+
+    def __init__(self, rig: WorkerRig, broker_config=None,
+                 shared_kube: bool = False,
+                 grpc_workers: int | None = 8,
+                 grpc_mode: str = "threadpool",
+                 gateway_workers: int | None = None,
+                 gateway_max_conns: int | None = None):
+        from gpumounter_tpu_torch.master.admission import AttachBroker
+        from gpumounter_tpu_torch.master.discovery import WorkerDirectory
+        from gpumounter_tpu_torch.master.gateway import MasterGateway
+        from gpumounter_tpu_torch.worker.grpc_server import build_server
+        from gpumounter_tpu_torch.worker.main import start_health_server
+
+        self.rig = rig
+        # ``grpc_mode="parking"`` = the production worker executor
+        # (worker/main.py TPU_GRPC_ASYNC default): grpc_workers becomes
+        # the ACTIVE-thread budget, slow waits park. ``grpc_workers=None``
+        # / ``grpc_mode="settings"`` defer to the rig's Settings (the
+        # WorkerRig(grpc_workers=, grpc_async=) plumbing — exactly what
+        # worker/main.py reads from env).
+        if grpc_workers is None:
+            grpc_workers = rig.sim.settings.grpc_workers
+        if grpc_mode == "settings":
+            grpc_mode = ("parking" if rig.sim.settings.grpc_async
+                         else "threadpool")
+        self.grpc_server, grpc_port = build_server(rig.service, port=0,
+                                                   address="127.0.0.1",
+                                                   max_workers=grpc_workers,
+                                                   mode=grpc_mode)
+        self.grpc_port = grpc_port
+        self.grpc_server.start()
+        # the worker's real health/metrics/tracez sidecar on an ephemeral
+        # port (production convention is grpc_port + 1, which an
+        # ephemeral gRPC bind can't honour) — the master's /tracez stitch
+        # and fleet scrape resolve it through worker_tracez_base below.
+        # The sidecar gets the state worker/main.py gives it, for this
+        # server only.
+        self.health_server = start_health_server(
+            0, journal=rig.service.journal, cache=rig.service.reads,
+            agent=rig.agent, gate=rig.gate, pool=rig.pool)
+        health_port = self.health_server.server_port
+        self.health_base = f"http://127.0.0.1:{health_port}"
+        # ``shared_kube=True``: the master reads the SAME fake cluster the
+        # worker mutates (slave pods visible), which broker restart
+        # re-derivation needs; the default keeps the split-view topology.
+        if shared_kube:
+            self.master_kube = rig.sim.kube
+        else:
+            self.master_kube = FakeKubeClient()
+            self.master_kube.put_pod(rig.pod)
+        self.master_kube.put_pod(worker_pod(rig.sim.node, "127.0.0.1"))
+        broker = (AttachBroker(self.master_kube, broker_config)
+                  if broker_config is not None else None)
+        self.gateway = MasterGateway(
+            self.master_kube,
+            WorkerDirectory(self.master_kube, grpc_port=grpc_port),
+            worker_tracez_base=lambda target: self.health_base,
+            broker=broker)
+        self.http_server = self.gateway.serve(
+            port=0, address="127.0.0.1", workers=gateway_workers,
+            max_conns=gateway_max_conns)
+        self.base = f"http://127.0.0.1:{self.http_server.server_port}"
+
+    def close(self) -> None:
+        self.http_server.shutdown()
+        self.health_server.shutdown()
+        self.grpc_server.stop(grace=0)
+        self.rig.close()

@@ -186,11 +186,12 @@ class _Stack:
         self.requests = _RequestCounter()
         self.facade.faults = self.requests
         self._closers.append(self.facade.close)
-        sa_dir = os.path.join(root, "serviceaccount")
-        os.makedirs(sa_dir)
-        with open(os.path.join(sa_dir, "token"), "w") as f:
+        self.sa_dir = os.path.join(root, "serviceaccount")
+        os.makedirs(self.sa_dir)
+        with open(os.path.join(self.sa_dir, "token"), "w") as f:
             f.write("worker-attach")
-        self.rest = InClusterKubeClient(host=self.facade.base, sa_dir=sa_dir)
+        self.rest = InClusterKubeClient(host=self.facade.base,
+                                        sa_dir=self.sa_dir)
         self.sim = ClusterSim(node=NODE, settings=self.settings,
                               kubelet_socket_path=True,
                               enumerator=enumerator, kube=self.kube)
@@ -225,6 +226,7 @@ class _Stack:
             max_parked=self.settings.grpc_max_parked)
         self.server.start()
         self._closers.append(lambda: self.server.stop(grace=0).wait())
+        self.port = port
         self.client = WorkerClient(f"127.0.0.1:{port}", timeout_s=120.0)
         self._closers.append(self.client.close)
 

@@ -337,13 +337,24 @@ def _world_main(rank: int, world: int, rendezvous: str, backend: str,
 def _close(q) -> None:
     """Take what no process took off ``q`` (its feeder thread can then
     flush), close it and join its feeder thread, so that a world leaves no
-    thread or pipe behind in this process."""
+    thread or pipe behind in this process.
+
+    Work for a rank gone before it read it may still sit in the feeder's
+    buffer after the drain; larger than the pipe, its write would block the
+    feeder, and the join, for ever. The join is bounded: past
+    ``FAILURE_GRACE_S`` the feeder is left to the process's exit (only a
+    failed world leaves one)."""
     try:
         while True:
             q.get_nowait()
     except (queue.Empty, OSError, EOFError):
         pass
     q.close()
+    feeder = q._thread
+    if feeder is not None:
+        feeder.join(timeout=FAILURE_GRACE_S)
+        if feeder.is_alive():
+            q.cancel_join_thread()
     q.join_thread()
 
 

@@ -291,13 +291,15 @@ def measure_long_context_row(t_len: int, batch: int, device: str = "cuda",
                              attn_impl: str = "flash",
                              profile: Callable[..., dict] | None = None
                              ) -> dict[str, Any]:
-    """One long-context row on the full-width model: 1 warm-up step, then
-    windows of 2 and 6 steps. With the flash attention the forward takes
-    its K-blocked contract beyond T=1024. ``profile`` as in
-    :func:`measure_train_perf`."""
+    """One long-context row on the full-width model, timed as the
+    flagship is: 2 warm-up steps, then windows of 4 and 12 steps (JAX's
+    rows take 1 and 2/6, ``jaxcheck/perf.py``; on an H100 one slow first
+    window of 2 made the two-window difference negative). With the flash
+    attention the forward takes its K-blocked contract beyond T=1024.
+    ``profile`` as in :func:`measure_train_perf`."""
     return measure_train_perf(mxu_config(), batch=batch, t_len=t_len,
-                              attn_impl=attn_impl, window_a=2, window_b=6,
-                              warmup_steps=1, device=device, profile=profile)
+                              attn_impl=attn_impl, window_a=4, window_b=12,
+                              warmup_steps=2, device=device, profile=profile)
 
 
 def measure_long_context(device: str = "cuda") -> dict[str, Any]:

@@ -136,8 +136,8 @@ ENV_GATE = "TPU_GATE"
 # The names are the control plane's, so one deployment configures both.
 ENV_POOL_NAMESPACE = "TPU_POOL_NAMESPACE"
 ENV_CGROUP_DRIVER = "CGROUP_DRIVER"
-# Warm-pool sizing ("entire:4=1,single:1=2"); the pool itself is not
-# ported yet, so a set value is logged and ignored (worker/main.py).
+# Warm-pool sizing ("entire:4=1,single:1=2" keeps one 4-GPU entire-mount
+# pod and two 1-GPU single-mount pods warm per node); unset = no pool.
 ENV_WARM_POOL = "TPU_WARM_POOL"
 ENV_WARM_POOL_INTERVAL_S = "TPU_WARM_POOL_INTERVAL_S"
 # Crash-safe attach journal (worker/journal.py); "" disables it.
@@ -215,3 +215,28 @@ ENV_DEFRAG_BUDGET = "TPU_DEFRAG_BUDGET"
 DEFAULT_DEFRAG_BUDGET = 4
 ENV_SLICE_REPAIR_BUDGET = "TPU_SLICE_REPAIR_BUDGET"
 DEFAULT_SLICE_REPAIR_BUDGET = 3
+
+# --- The master gateway (master/gateway.py, master/httpfront.py) --------------
+# The names are the control plane's, so one deployment configures both.
+# Fleet aggregator (master/fleet.py) scrape cadence, default 5 s.
+ENV_FLEET_INTERVAL_S = "TPU_FLEET_INTERVAL_S"
+# "multiplexed" (default): the bounded selector + worker-pool front;
+# "threaded": thread-per-request ThreadingHTTPServer.
+ENV_GATEWAY_FRONT = "TPU_GATEWAY_FRONT"
+# Worker threads of the multiplexed front (0/unset = min(32, 4*cores)).
+ENV_GATEWAY_WORKERS = "TPU_GATEWAY_WORKERS"
+# Connection admission bound; beyond it new connections get a canned 503.
+ENV_GATEWAY_MAX_CONNS = "TPU_GATEWAY_MAX_CONNS"
+# gRPC channels kept per worker target (round-robined per call).
+ENV_GATEWAY_WORKER_CHANNELS = "TPU_GATEWAY_WORKER_CHANNELS"
+# Planes the port's master does not run yet (ROADMAP Queue 1 item 12):
+# the master serves as the control plane's does with both set to "0".
+ENV_NODE_HEALTH = "TPU_NODE_HEALTH"
+
+# Request headers naming the tenant/priority (query params ?tenant= /
+# ?priority= take precedence; both fall back to namespace / "normal").
+TENANT_HEADER = "X-Tpu-Tenant"
+PRIORITY_HEADER = "X-Tpu-Priority"
+# Priority vocabulary, weakest first — index is the comparison rank.
+PRIORITIES = ("low", "normal", "high")
+DEFAULT_PRIORITY = "normal"

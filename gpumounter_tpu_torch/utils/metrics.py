@@ -515,6 +515,102 @@ class Registry:
         # Identifies the build on every /metrics surface (standard
         # <name>_info pattern: constant 1, the payload is the label).
         from gpumounter_tpu_torch import __version__
+        # Warm-pool effectiveness (worker/pool.py): hits = slave pods
+        # adopted from the pool (attach skipped the scheduler wait),
+        # misses = pods the attach had to cold-create with a pool enabled.
+        self.pool_hits = Counter(
+            "tpumounter_pool_hits_total",
+            "Slave pods adopted from the warm pool by AddTPU")
+        self.pool_misses = Counter(
+            "tpumounter_pool_misses_total",
+            "Slave pods cold-created by AddTPU despite an enabled pool")
+        self.pool_hits.inc(0.0)      # pre-seed: see orphans_reclaimed
+        self.pool_misses.inc(0.0)
+        self.warm_pool_size = Gauge(
+            "tpumounter_warm_pool_size",
+            "Adoptable (Running, unowned) warm slave pods by pool key")
+        self.pool_refill_latency = Histogram(
+            "tpumounter_pool_refill_seconds",
+            "Warm-pod creation to Running (the scheduler cost the pool "
+            "pays off the attach critical path)")
+        # The master (master/gateway.py, httpfront.py): request latency by
+        # route, and the multiplexed front's admission state.
+        self.gateway_requests = LabeledHistogram(
+            "tpumounter_gateway_request_seconds",
+            "Master gateway HTTP request latency by route")
+        self.gateway_inflight = Gauge(
+            "tpumounter_gateway_inflight",
+            "HTTP requests currently admitted by the master gateway "
+            "front (queued or being processed)")
+        self.gateway_rejected = Counter(
+            "tpumounter_gateway_rejected_total",
+            "Connections refused by the gateway front's admission bound")
+        self.gateway_rejected.inc(0.0)   # pre-seed: see orphans_reclaimed
+        # Attach broker (master/admission.py, lease.py, waiterindex.py).
+        self.admission_decisions = Counter(
+            "tpumounter_admission_decisions_total",
+            "Attach-broker admission decisions by tenant and outcome")
+        self.queue_depth = Gauge(
+            "tpumounter_queue_depth",
+            "Attach requests waiting in the broker queue, by priority")
+        self.queue_oldest_age = Gauge(
+            "tpumounter_queue_oldest_age",
+            "Age in seconds of the oldest queued attach request "
+            "(0 = queue empty)")
+        self.queue_wait = LabeledHistogram(
+            "tpumounter_queue_wait_seconds",
+            "Time a contended attach spent queued in the broker before "
+            "completing or timing out, by tenant")
+        self.wakeup_signals = Counter(
+            "tpumounter_wakeup_signals_total",
+            "Capacity signals that scanned the waiter queue for a "
+            "candidate to wake")
+        self.wakeup_signals.inc(0.0)     # pre-seed: see orphans_reclaimed
+        self.wakeup_evaluations = Counter(
+            "tpumounter_wakeup_evaluations_total",
+            "Parked waiters examined across all capacity signals (the "
+            "per-signal cost of choosing whom to wake)")
+        self.wakeup_evaluations.inc(0.0)
+        self.preemptions = Counter(
+            "tpumounter_preemptions_total",
+            "Live attachments detached by the broker to make room for a "
+            "high-priority request (victims are over-quota tenants)")
+        self.preemptions.inc(0.0)        # pre-seed: see orphans_reclaimed
+        self.lease_expirations = Counter(
+            "tpumounter_lease_expirations_total",
+            "Expired attachment leases auto-detached by the broker "
+            "(chips drained back to the pool instead of leaking)")
+        self.lease_expirations.inc(0.0)  # pre-seed: see orphans_reclaimed
+        self.active_leases = Gauge(
+            "tpumounter_active_leases",
+            "Live attachment leases tracked by the broker, by tenant")
+        self.tenant_chips_in_use = Gauge(
+            "tpumounter_tenant_chips_in_use",
+            "Chips currently held under broker leases, by tenant")
+        self.tenant_quota_chips = Gauge(
+            "tpumounter_tenant_quota_chips",
+            "Configured chip quota by tenant (absent = unlimited)")
+        # SLO engine (utils/slo.py): error-budget burn rate per tenant and
+        # objective over each window ("5m"/"1h").
+        self.slo_burn_rate = Gauge(
+            "tpumounter_slo_burn_rate",
+            "Error-budget burn rate by tenant, slo and window "
+            "(1 = exactly consuming the budget; >=14.4 over 5m pages)")
+        # Fleet aggregator (master/fleet.py): workers by scrape health,
+        # and the utilization join (zero while no worker serves /utilz).
+        self.fleet_nodes = Gauge(
+            "tpumounter_fleet_nodes",
+            "Workers known to the master's fleet aggregator, by state "
+            "(fresh/stale)")
+        self.lease_utilization = Gauge(
+            "tpumounter_lease_utilization",
+            "Mean observed duty cycle across a tenant's leased chips "
+            "(0..1), from the fleet aggregator's /utilz scrapes")
+        self.tenant_chips_idle = Gauge(
+            "tpumounter_tenant_chips_idle",
+            "Leased chips whose lease the broker marked idle (zero "
+            "duty past TPU_IDLE_LEASE_S), by tenant — reclaimable "
+            "capacity held against quota")
         self.build_info = Gauge(
             "tpumounter_build_info",
             "Build identity of this binary (value is always 1; the "

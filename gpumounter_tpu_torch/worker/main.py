@@ -352,19 +352,25 @@ def main() -> None:
     from gpumounter_tpu_torch.worker.reconciler import OrphanReconciler
     reconciler = OrphanReconciler(service.kube, settings,
                                   gate=service.mounter.gate).start()
-    # Not ported yet: the warm pool (worker/pool.py, the next slice) and
-    # the usage sampler and topology view (the port's Queue 1 item 12).
-    # /poolz, /utilz and /topoz answer {"enabled": false}, as the control
-    # plane's worker does with the pool unset, TPU_USAGE=0 and
-    # TPU_TOPOLOGY=0.
+    pool = None
     if settings.warm_pool_enabled:
-        logger.warning("%s is set (%s) but the warm pool is not ported "
-                       "yet (ROADMAP Queue 1 item 10, worker/pool.py); "
-                       "attaches take the cold path", consts.ENV_WARM_POOL,
-                       settings.warm_pool_sizes)
+        from gpumounter_tpu_torch.worker.pool import PoolManager
+        pool = PoolManager(service.allocator, service.kube,
+                           settings)
+        # pool-warm actuation hook: each reconcile pass refreshes the
+        # inventory snapshot (and with it the precomputed actuation plan
+        # cache) OFF the attach hot path
+        pool.warm_hook = service.allocator.collector.update_status
+        pool.start()
+        service.pool = pool
+        _HealthHandler.pool = pool
+        logger.info("warm pool enabled: %s", settings.warm_pool_sizes)
+    # Not ported yet: the usage sampler and topology view (the port's
+    # Queue 1 item 12d). /utilz and /topoz answer {"enabled": false}, as
+    # the control plane's worker does with TPU_USAGE=0 and TPU_TOPOLOGY=0.
     if settings.usage_enabled or settings.topology_enabled:
         logger.warning("the usage sampler and the topology view are not "
-                       "ported yet (ROADMAP Queue 1 item 12); /utilz and "
+                       "ported yet (ROADMAP Queue 1 item 12d); /utilz and "
                        "/topoz answer as with %s=0 and %s=0",
                        consts.ENV_USAGE, consts.ENV_TOPOLOGY)
     tls = load_tls_config()
@@ -433,6 +439,8 @@ def main() -> None:
     finally:
         if spot_watcher is not None:
             spot_watcher.stop()
+        if pool is not None:
+            pool.stop()
         if _HealthHandler.agent is not None:
             _HealthHandler.agent.stop()
         reconciler.stop()

@@ -3,6 +3,8 @@ configurations, the FLOP and residual arithmetic, the retry guard, the
 identity-attention ablation step, and each measurement's report at a tiny
 configuration."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -221,6 +223,28 @@ def test_measure_long_context_on_cpu(tiny):
         # a tiny CPU step's two-window difference can fall below zero to
         # timer noise (see test_measure_both_on_cpu): it must be a number
         assert full["result"] == "ran" and np.isfinite(full["train_step_ms"])
+
+
+def test_long_context_row_times_as_the_flagship(monkeypatch):
+    """Every long-context row takes the flagship's timing: 2 warm-up
+    steps, then windows of 4 and 12 (a departure from JAX's 1 and 2/6:
+    one slow first window of 2 steps made the seq-4096 row's two-window
+    difference negative on an H100)."""
+    seen = {}
+    flagship = inspect.signature(tperf.measure_train_perf).parameters
+
+    def fake(cfg, **kwargs):
+        seen.update(kwargs)
+        return {}
+
+    monkeypatch.setattr(tperf, "measure_train_perf", fake)
+    tperf.measure_long_context_row(4096, 2, device="cpu")
+    assert (seen["warmup_steps"], seen["window_a"], seen["window_b"]) == \
+        (2, 4, 12)
+    assert (seen["batch"], seen["t_len"], seen["attn_impl"]) == \
+        (2, 4096, "flash")
+    assert (flagship["warmup_steps"].default, flagship["window_a"].default,
+            flagship["window_b"].default) == (2, 4, 12)
 
 
 def test_long_context_full_attention_predicted_oom_and_clean_oom(

@@ -145,6 +145,23 @@ def _fds_and_threads():
     return len(os.listdir("/proc/self/fd")), threading.active_count()
 
 
+def test_closing_a_queue_with_unread_work_does_not_hang():
+    """Work no rank read (a rank gone before it took its item), larger
+    than the pipe, must not hang the queue's close."""
+    import multiprocessing
+    import threading
+
+    from gpumounter_tpu_torch.torchcheck import dist as dist_lib
+    q = multiprocessing.get_context("spawn").Queue()
+    for _ in range(3):
+        q.put(b"x" * 200_000)
+    closer = threading.Thread(target=dist_lib._close, args=(q,),
+                              daemon=True)
+    closer.start()
+    closer.join(timeout=dist_lib.FAILURE_GRACE_S + 20)
+    assert not closer.is_alive()
+
+
 def test_a_world_leaves_no_thread_fd_or_rendezvous_behind(monkeypatch):
     """run_world closes its queues (joining their feeder threads), the
     processes' sentinels and its rendezvous directory before it returns,

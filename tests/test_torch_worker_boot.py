@@ -97,9 +97,10 @@ def _gpu_tree(host: HostPaths, n: int) -> None:
 
 
 @pytest.fixture
-def node():
+def node(request):
     """A fixture node on tmpfs (real mknod needs a filesystem that takes
-    char nodes), a facade, a kubelet socket and one target container."""
+    char nodes), a facade, a kubelet socket and one target container; an
+    indirect parameter adds to the worker's environment."""
     if os.geteuid() != 0:
         pytest.skip("the worker makes real char nodes: needs root")
     base = "/dev/shm" if os.access("/dev/shm", os.W_OK) else None
@@ -137,6 +138,7 @@ def node():
         "TPU_WORKER_GRPC_PORT": str(port),
         "TPU_JOURNAL_PATH": os.path.join(root, "journal.jsonl"),
         "TPU_ALLOCATION_TIMEOUT_S": "20"})
+    env.update(getattr(request, "param", {}))
     proc = subprocess.Popen(
         [sys.executable, "-m", "gpumounter_tpu_torch.worker.main"],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -211,3 +213,39 @@ def test_worker_boots_attaches_and_detaches(node):
                 if "WARNING" in line and "Queue 1 item 12" in line]
     assert len(warnings) == 1, log[-3000:]
     assert "/utilz" in warnings[0] and "/topoz" in warnings[0]
+
+
+@pytest.mark.parametrize("node", [{"TPU_WARM_POOL": "single:1=1",
+                                   "TPU_WARM_POOL_INTERVAL_S": "0.2"}],
+                         indirect=True)
+def test_worker_boots_with_a_warm_pool(node):
+    """``TPU_WARM_POOL`` builds the pool as the control plane's worker
+    does: ``/poolz`` reports it, a fitting attach adopts the warm pod, and
+    the pool refills."""
+    proc, port = node["proc"], node["port"]
+    health = f"http://127.0.0.1:{port + 1}"
+    _wait_ready(f"{health}/readyz", proc)
+
+    def poolz():
+        return json.loads(_get(f"{health}/poolz")[1])
+
+    deadline = time.monotonic() + 30
+    while poolz()["keys"]["single:1"]["running"] < 1:
+        assert time.monotonic() < deadline, poolz()
+        time.sleep(0.1)
+    assert poolz()["enabled"] is True
+    client = WorkerClient(f"127.0.0.1:{port}", timeout_s=30)
+    try:
+        resp = client.add_gpu("workload", "default", 1, request_id="warm-1")
+        assert resp.result == 0, resp
+        metrics = _get(f"{health}/metrics")[1]
+        assert "tpumounter_pool_hits_total 1" in metrics
+        deadline = time.monotonic() + 30
+        while poolz()["keys"]["single:1"]["running"] < 1:
+            assert time.monotonic() < deadline, poolz()
+            time.sleep(0.1)
+        assert client.remove_gpu("workload", "default").result == 0
+    finally:
+        client.close()
+    proc.send_signal(signal.SIGTERM)
+    assert proc.wait(timeout=30) in (0, -signal.SIGTERM)

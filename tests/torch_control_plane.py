@@ -21,10 +21,14 @@ MODULES = ("actuation.agent", "actuation.cgroup", "actuation.gate",
            "actuation.nsenter", "allocator", "allocator.allocator",
            "allocator.topology", "device.fake", "k8s.client", "k8s.informer",
            "k8s.objects", "testing.chaos", "testing.http_apiserver",
-           "testing.sim", "utils.config", "utils.consts", "utils.errors",
-           "utils.metrics", "utils.parking", "utils.retry", "worker.drain",
-           "worker.grpc_server", "worker.journal", "worker.reconciler",
-           "worker.service")
+           "master.admission", "master.discovery", "master.fleet",
+           "master.gateway", "master.httpfront", "master.lease",
+           "master.shardring", "master.waiterindex", "testing.sim",
+           "utils.config", "utils.consts", "utils.errors", "utils.events",
+           "utils.metrics", "utils.parking", "utils.retry", "utils.slo",
+           "utils.trace", "worker.drain", "worker.grpc_server",
+           "worker.journal", "worker.main", "worker.pool",
+           "worker.reconciler", "worker.service")
 
 
 class Pkg(types.SimpleNamespace):
