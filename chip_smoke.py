@@ -99,7 +99,24 @@ Phases, each printing one JSON line on stdout:
      the apiserver requests of each; one ``/fleetz`` (the worker fresh)
      and one ``/metrics`` read (every attach counted by master and
      worker); the resident agent's fallbacks 0;
- 13. the kernels line (each entry names the device function and the line
+ 13. slice_attach — a four-host slice through the same master
+     (``gpumounter_tpu_torch/testing/slice_attach.py``): host 0 is the
+     worker of phase 11 on this machine's card, hosts 1-3 are fixture GKE
+     GPU nodes (``nvidia-h100-80gb``, one GPU each); ``POST /addgpuslice``
+     over the four pods answers SUCCESS with host 0's nvidia-smi UUID;
+     ``/slicez`` shows the group at generation 1 with its generation-1
+     barrier, which the four members complete with the port's
+     ``BarrierClient``; ``/slice/resize`` 4 -> 2 -> 4 moves the generation
+     to 2 and 3 in ``/slicez``, ``MasterSliceSignal`` and the members'
+     ``tpumounter.io/mesh-generation`` annotations, re-arming the barrier;
+     the in-pod proof on host 0's card makes ``/removegpuslice`` answer
+     409 with host 0 ``GPU_BUSY``, and the repeat after it exits answers
+     200 (the hosts already detached ``GPU_NOT_FOUND``); a gang parks
+     behind a plain ``/addgpu`` on host 3 and completes when it is
+     removed; 20 timed ``/addgpuslice`` + ``/removegpuslice`` pairs with
+     the slice trace's spans and each host's attach time; the slice
+     invariants, the agent's fallbacks 0, and the phase under 45 s;
+ 14. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -1501,6 +1518,29 @@ def master_attach(card: str) -> dict:
             "ok": all(checks.values())}
 
 
+SLICE_ATTACH_DIR = os.path.join(REPO, "build", "slice_attach")
+
+
+def slice_attach(card: str) -> dict:
+    """A four-host slice through the port's master: host 0 on this
+    machine's real device layer with the in-pod proof on its card, hosts
+    1-3 fixture GPU nodes (``testing/slice_attach.py``). Host 0's UUID must
+    be one nvidia-smi names."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.master_attach import cuda_proof
+    from gpumounter_tpu_torch.testing.slice_attach import run_slice_attach
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_slice_attach(SLICE_ATTACH_DIR, PyEnumerator(HostPaths()),
+                              cuda_proof)
+    checks = report["checks"]
+    checks["card_is_an_nvidia_smi_uuid"] = (
+        report.get("card", {}).get("uuid") in smi_uuids)
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1706,6 +1746,7 @@ def main() -> int:
     phase("node_attach", lambda: node_attach(card))
     phase("worker_attach", lambda: worker_attach(card))
     phase("master_attach", lambda: master_attach(card))
+    phase("slice_attach", lambda: slice_attach(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

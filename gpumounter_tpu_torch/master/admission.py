@@ -39,13 +39,17 @@ families: ``admission_decisions_total{tenant,outcome}``,
 ``lease_expirations_total``, ``active_leases{tenant}`` and the
 ``tenant_chips_in_use``/``tenant_quota_chips`` pair.
 
+4. **Slices** — a whole-slice attach (``master/slicetxn.py``) parks as
+   a node-less **gang waiter** on the same queue; a slice group's leases
+   renew, expire and are preempted as one.
+
 This is the port of :mod:`gpumounter_tpu.master.admission` on the
 single-master path, with every plane the port does not run yet in the
-off state the control plane defines for it: no HA binding (no intent
-store, shard ring or election, so no waiter persistence or adoption), no
-slice groups or gang waiters (``master/slicetxn.py``), no node-health
-fencing (``TPU_NODE_HEALTH=0``) and no defragmenter. Those hooks arrive
-with their planes (ROADMAP Queue 1 item 12).
+off state the control plane defines for it: no HA binding (``store`` and
+``election`` stay None, the control plane's values before ``bind_ha``: no
+waiter persistence or adoption, no cross-shard capacity pokes), no
+node-health fencing (``TPU_NODE_HEALTH=0``) and no defragmenter. Those
+hooks arrive with their planes (ROADMAP Queue 1 items 12b-12d).
 """
 
 from __future__ import annotations
@@ -85,12 +89,20 @@ class BrokerConfig:
     lease_ttl_s: float = 0.0
     queue_timeout_s: float = 0.0
     queue_depth: int = 64
+    # Gang (whole-slice) waiters: how long partially reserved hosts may
+    # be held before hand-back (master/slicetxn.py anti-deadlock).
+    gang_hold_s: float = consts.DEFAULT_GANG_HOLD_S
     # Idle-lease threshold: zero observed duty for this long marks the
     # lease idle (event + doctor WARN + preferred preemption victim).
     # Only acts while worker utilization telemetry is flowing
     # (bind_utilization + TPU_USAGE on), so the default is inert
     # without the sampler.
     idle_lease_s: float = consts.DEFAULT_IDLE_LEASE_S
+    # Re-federation barrier (master/slicetxn.py): a barrier incomplete
+    # past this window is STUCK — surfaced in /slicez with the missing
+    # member names.
+    resize_barrier_timeout_s: float = \
+        consts.DEFAULT_RESIZE_BARRIER_TIMEOUT_S
     # Indexed waiter wakeup (master/waiterindex.py): capacity signals
     # examine only candidates the freed capacity could satisfy instead
     # of rescanning the whole queue. Selection order is pinned
@@ -107,7 +119,10 @@ class BrokerConfig:
                    lease_ttl_s=settings.lease_ttl_s,
                    queue_timeout_s=settings.queue_timeout_s,
                    queue_depth=settings.queue_depth,
+                   gang_hold_s=settings.gang_hold_s,
                    idle_lease_s=settings.idle_lease_s,
+                   resize_barrier_timeout_s=(
+                       settings.resize_barrier_timeout_s),
                    waiter_index=settings.waiter_index,
                    pool_namespace=settings.pool_namespace,
                    resource_name=settings.resource_name)
@@ -121,7 +136,7 @@ class _Waiter:
 
     __slots__ = ("tenant", "priority", "chips", "node", "rid",
                  "namespace", "pod", "enqueued_at", "event", "tried_gen",
-                 "preempted", "deadline")
+                 "preempted", "deadline", "gang")
 
     def __init__(self, tenant: str, priority: str, chips: int, node: str,
                  rid: str, namespace: str, pod: str, gen: int,
@@ -138,6 +153,9 @@ class _Waiter:
         self.tried_gen = gen
         self.preempted = 0     # victims already detached for this waiter
         self.deadline = self.enqueued_at + timeout_s
+        # Gang waiter (a parked whole-slice attach, master/slicetxn.py):
+        # node-less — any host freeing GPUs may complete it.
+        self.gang = False
 
 
 class AttachBroker:
@@ -174,6 +192,16 @@ class AttachBroker:
         self._rederived = False
         self._loop: threading.Thread | None = None
         self._stop = threading.Event()
+        # HA plane: the intent store and this replica's election view,
+        # None as the control plane's broker holds them before bind_ha
+        # (ROADMAP Queue 1 item 12b) — the slice txn manager's persist
+        # paths read ``store`` and write nothing.
+        self.store = None
+        self.election = None
+        # Slice transaction manager (bind_slice): group-lease expiry and
+        # preemption detach whole slices through it. None = single-host
+        # semantics only.
+        self._slice = None
         # Utilization feed (bind_utilization): zero-arg callable →
         # {(namespace, pod): activity dict} from the fleet aggregator's
         # /utilz scrapes. None = no telemetry, no idle marking — the
@@ -187,6 +215,12 @@ class AttachBroker:
         """``detach_fn(lease, cause, force) -> result name`` — the
         gateway's worker-path detach, used for preemption and expiry."""
         self._detach_fn = detach_fn
+
+    def bind_slice(self, manager) -> None:
+        """Wire the slice transaction manager (master/slicetxn.py):
+        group-lease expiry and preemption detach whole slices through
+        it, and the tick refreshes its gauges."""
+        self._slice = manager
 
     def bind_utilization(self, activity_fn) -> None:
         """Wire the fleet aggregator's per-lease activity feed
@@ -374,7 +408,7 @@ class AttachBroker:
         # default-resolution here could silently diverge from that gate
         with self._lock:
             depth = self._check_queue_full_locked(tenant, priority,
-                                                  chips, rid)
+                                                  chips, rid, gang=False)
             waiter = _Waiter(tenant, priority, chips, node, rid,
                              namespace, pod, gen=gen0, timeout_s=timeout)
             self._waiters.add(waiter)
@@ -453,20 +487,82 @@ class AttachBroker:
                 self._signal_next_locked()
                 self._refresh_queue_gauges_locked()
 
+    # -- gang waiters (whole-slice attaches, master/slicetxn.py) ---------------
+
+    def current_gen(self) -> int:
+        """The capacity generation right now — callers snapshot it
+        before an attempt so an enqueue can self-arm against a signal
+        that fired in between (``_attach_queued`` and ``park_gang``)."""
+        with self._lock:
+            return self._gen
+
     def _check_queue_full_locked(self, tenant: str, priority: str,
-                                 chips: int, rid: str) -> int:
-        """The queue-full gate: returns the current same-priority depth, or raises
+                                 chips: int, rid: str,
+                                 gang: bool) -> int:
+        """The one queue-full gate (single waiters and gangs share it):
+        returns the current same-priority depth, or raises
         :class:`QueueFullError` with the derived hint."""
         depth = self._waiters.count(priority)
         if depth >= self.config.queue_depth:
             REGISTRY.admission_decisions.inc(tenant=tenant,
                                              outcome="queue_full")
             EVENTS.emit("queue_full", rid=rid, tenant=tenant,
-                        chips=chips, priority=priority, depth=depth)
+                        chips=chips, priority=priority, depth=depth,
+                        gang=gang)
             raise QueueFullError(
                 priority, depth,
                 retry_after_s=self._queue_full_hint_locked(priority))
         return depth
+
+    def park_gang(self, *, tenant: str, priority: str, chips: int,
+                  rid: str, namespace: str, label: str,
+                  timeout_s: float, gen0: int | None = None) -> _Waiter:
+        """Park a whole-slice attach in the contention queue. The gang
+        rides the SAME priority-then-weighted-fair wakeup as single
+        waiters (its GPUs weigh its tenant's fair share), but is
+        node-less — any host freeing GPUs may complete some member.
+        ``gen0`` is the capacity generation sampled BEFORE the failed
+        attempt: a signal that fired in between already went to someone
+        else (or nobody), so the gang self-arms instead of sleeping next
+        to free GPUs. Raises :class:`QueueFullError` at the per-priority
+        bound like any other enqueue."""
+        with self._lock:
+            depth = self._check_queue_full_locked(tenant, priority,
+                                                  chips, rid, gang=True)
+            waiter = _Waiter(tenant, priority, chips, node="", rid=rid,
+                             namespace=namespace, pod=label,
+                             gen=self._gen if gen0 is None else gen0,
+                             timeout_s=timeout_s)
+            waiter.gang = True
+            self._waiters.add(waiter)
+            if gen0 is not None and self._gen != gen0:
+                waiter.tried_gen = self._gen
+                waiter.event.set()
+            self._refresh_queue_gauges_locked()
+        EVENTS.emit("queue_enqueue", rid=rid, tenant=tenant, chips=chips,
+                    namespace=namespace, pod=label, priority=priority,
+                    depth=depth + 1, gang=True)
+        return waiter
+
+    def unpark_gang(self, waiter: _Waiter) -> None:
+        """Remove a resolved gang from the queue and hand any
+        outstanding wakeup on (the departing-waiter baton discipline of
+        ``_attach_queued``'s finally block)."""
+        with self._lock:
+            if waiter in self._waiters:
+                self._waiters.remove(waiter)
+            self._signal_next_locked()
+            self._refresh_queue_gauges_locked()
+
+    def gang_baton(self, waiter: _Waiter) -> None:
+        """A woken gang retried and is still short: mark its generation
+        consumed and wake the next untried waiter."""
+        self._signal_next(exclude=waiter)
+
+    def try_preempt_for(self, waiter: _Waiter) -> bool:
+        """Preemption entry for gang waiters (the single-attach queue
+        loop calls ``_try_preempt`` directly)."""
+        return self._try_preempt(waiter)
 
     # -- capacity signalling / fair dequeue ------------------------------------
 
@@ -510,6 +606,7 @@ class AttachBroker:
         for priority in consts.PRIORITIES:
             REGISTRY.queue_depth.set(self._waiters.count(priority),
                                      priority=priority)
+        REGISTRY.gang_queue_depth.set(self._waiters.gang_count())
         oldest = self._waiters.oldest_enqueued_at()
         REGISTRY.queue_oldest_age.set(
             0.0 if oldest is None else round(now - oldest, 3))
@@ -534,6 +631,8 @@ class AttachBroker:
         if victim is None:
             return False
         cause = f"preempted:{waiter.tenant}:{waiter.rid or '-'}"
+        if victim.group and self._slice is not None:
+            return self._preempt_group(victim, waiter, cause)
         logger.warning("preempting %s/%s (tenant=%s priority=%s chips=%d)"
                        " for high-priority rid=%s of tenant=%s",
                        victim.namespace, victim.pod, victim.tenant,
@@ -561,6 +660,40 @@ class AttachBroker:
             return True
         logger.warning("preemption of %s/%s did not free chips: %s",
                        victim.namespace, victim.pod, result)
+        return False
+
+    def _preempt_group(self, victim: Lease, waiter: _Waiter,
+                       cause: str) -> bool:
+        """Preempt a slice group as a unit: detaching one member would
+        leave the victim's world broken AND keep most of its GPUs — the
+        group goes together, through the coordinator's fan-out."""
+        members = self.leases.group_leases(victim.group)
+        pods = [(member.namespace, member.pod) for member in members]
+        logger.warning("preempting slice group %s (%d hosts, tenant=%s) "
+                       "for high-priority rid=%s of tenant=%s",
+                       victim.group, len(pods), victim.tenant,
+                       waiter.rid, waiter.tenant)
+        ok, results = self._slice.detach_members(
+            pods, cause=f"{cause}:group:{victim.group}", force=True)
+        freed_chips = 0
+        freed_members = 0
+        for result in results:
+            if result.result in _DETACH_GONE:
+                dropped = self.leases.drop(result.namespace, result.pod)
+                if dropped is not None:
+                    freed_chips += dropped.chips
+                    freed_members += 1
+        if freed_members:
+            REGISTRY.preemptions.inc()
+            EVENTS.emit("preempt", rid=waiter.rid, tenant=waiter.tenant,
+                        namespace=victim.namespace, pod=victim.pod,
+                        chips=freed_chips, victim_tenant=victim.tenant,
+                        victim_priority=victim.priority,
+                        group=victim.group,
+                        result="SUCCESS" if ok else "PARTIAL")
+            waiter.preempted += freed_members
+            self.signal_capacity()
+            return True
         return False
 
     def _pick_victim(self, waiter: _Waiter) -> Lease | None:
@@ -609,10 +742,16 @@ class AttachBroker:
               ttl_s: float | None = None) -> Lease:
         """Extend a lease (``POST /renew``). Raises KeyError for unknown
         leases — a renew can't resurrect an expired-and-reaped attach.
-        """
+        A slice-group member renews the WHOLE group: the slice lives and
+        dies as a unit, so one member's heartbeat is the slice's."""
         self.ensure_rederived()
         ttl = self.config.lease_ttl_s if ttl_s is None else ttl_s
-        return self.leases.renew(namespace, pod, ttl)
+        lease = self.leases.renew(namespace, pod, ttl)
+        if lease.group:
+            for member in self.leases.group_leases(lease.group):
+                if member.key != lease.key:
+                    self.leases.renew(member.namespace, member.pod, ttl)
+        return lease
 
     def release(self, namespace: str, pod: str,
                 uuids: list[str] | None = None) -> None:
@@ -661,6 +800,9 @@ class AttachBroker:
         for lease in self.leases.expired(now):
             if self._reap(lease, now):
                 reaped += 1
+        if self._slice is not None:
+            # slice gauges (and, with the HA plane, stranded adoption)
+            self._slice.tick()
         # idle-lease marking from the utilization feed (collector/
         # usage.py → fleet scrapes → here): leases whose chips showed
         # zero duty past the threshold become reclaim candidates
@@ -763,6 +905,11 @@ class AttachBroker:
         remaining = lease.expires_in_s(now)
         if remaining is None or remaining > 0:
             return False
+        if lease.group and self._slice is not None:
+            # slice-group expiry: the WHOLE slice detaches as a unit —
+            # one expired member means the group's heartbeat stopped,
+            # and a partial slice is useless to the world over it
+            return self._reap_group(lease)
         cause = f"lease-expired:{lease.rid or '-'}"
         result = self._detach_fn(lease, cause, False)
         if result in _DETACH_GONE:
@@ -785,6 +932,45 @@ class AttachBroker:
         logger.warning("lease-expiry detach of %s/%s deferred (%s), "
                        "attempt %d", lease.namespace, lease.pod, result,
                        lease.reap_failures)
+        return False
+
+    def _reap_group(self, lease: Lease) -> bool:
+        """Expire a whole slice group through the coordinator's fan-out
+        (master/slicetxn.py ``detach_members``) — every member host, the
+        cause stamped into each worker's audit trail."""
+        members = self.leases.group_leases(lease.group)
+        if not members:
+            return False
+        cause = f"lease-expired:{lease.rid or '-'}:group:{lease.group}"
+        pods = [(member.namespace, member.pod) for member in members]
+        ok, results = self._slice.detach_members(pods, cause=cause)
+        gone = [r for r in results if r.result in _DETACH_GONE]
+        dropped = 0
+        for result in gone:
+            if self.leases.drop(result.namespace,
+                                result.pod) is not None:
+                dropped += 1
+        if dropped:
+            REGISTRY.lease_expirations.inc(float(dropped))
+            logger.info("slice group %s expired: detached %d member "
+                        "host(s)", lease.group, dropped)
+        EVENTS.emit("lease_expired", rid=lease.rid, tenant=lease.tenant,
+                    namespace=lease.namespace, pod=lease.pod,
+                    chips=sum(member.chips for member in members),
+                    group=lease.group,
+                    result="SUCCESS" if ok else "PARTIAL")
+        if dropped:
+            self.signal_capacity()
+        if ok:
+            return True
+        # some member deferred (busy devices): back EVERY surviving
+        # member off and retry next tick — the dropped ones are gone for
+        # real, so the group shrinks toward resolved instead of
+        # hammering the busy host once per member per tick
+        for member in self.leases.group_leases(lease.group):
+            member.reap_failures += 1
+            member.expires_at = time.monotonic() + min(
+                30.0, 2.0 * member.reap_failures)
         return False
 
     # -- introspection (/brokerz) ----------------------------------------------

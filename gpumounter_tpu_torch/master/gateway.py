@@ -23,11 +23,17 @@ priority/preemption, and attachment leases (``POST /renew``,
 ``GET /brokerz``) — all default-off, see docs/guide/Multitenancy.md. A
 known route hit with the wrong HTTP method answers 405 + Allow.
 
+Multi-host slices (master/slice.py, master/slicetxn.py) ride five more
+routes: ``POST /addgpuslice`` and ``/removegpuslice`` (body
+``{"pods": [{"namespace", "pod"}, ...], "gpusPerHost": N}``), ``POST
+/slice/resize``, ``GET/POST /slice/barrier`` (the re-federation barrier)
+and ``GET /slicez``.
+
 The port serves the single-master path. Every plane it does not run yet is
 in the off state the control plane defines for it: no HA (``HAConfig``
-enabled raises), no node health (as ``TPU_NODE_HEALTH=0``), no topology
-plane or defragmenter (as ``TPU_TOPOLOGY=0``: ``/topoz`` is no route), and
-no slice subsystem: its routes answer 501 naming the ROADMAP item.
+enabled raises), no node health (as ``TPU_NODE_HEALTH=0``), and no
+topology plane or defragmenter (as ``TPU_TOPOLOGY=0``: ``/topoz`` is no
+route).
 """
 
 from __future__ import annotations
@@ -52,12 +58,15 @@ from gpumounter_tpu_torch.master.discovery import (WorkerDirectory,
                                                    WorkerNotFoundError)
 from gpumounter_tpu_torch.master.fleet import FleetAggregator
 from gpumounter_tpu_torch.master.shardring import HAConfig
+from gpumounter_tpu_torch.master.slice import DETACH_DONE, SliceCoordinator
+from gpumounter_tpu_torch.master.slicetxn import SliceTxnManager
 from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.events import EVENTS
 from gpumounter_tpu_torch.utils.errors import (CircuitOpenError, K8sApiError,
                                                PodNotFoundError,
                                                QueueFullError,
-                                               QuotaExceededError)
+                                               QuotaExceededError,
+                                               TopologyError)
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
 from gpumounter_tpu_torch.utils.retry import CircuitBreaker, RetryPolicy
@@ -139,13 +148,6 @@ _PLAIN_ROUTES = {"/healthz": "healthz", "/version": "version",
                  "/slice/resize": "sliceresize",
                  "/slice/barrier": "slicebarrier",
                  "/slicez": "slicez"}
-# The slice subsystem's routes (master/slicetxn.py, master/slice.py) are
-# not ported yet: they answer 501 and name the ROADMAP item that ports them.
-_SLICE_ROUTES = ("/addgpuslice", "/removegpuslice", "/slice/resize",
-                 "/slice/barrier", "/slicez")
-_SLICE_NOT_PORTED = ("the slice subsystem (master/slicetxn.py, "
-                     "master/slice.py) is not ported yet: ROADMAP Queue 1 "
-                     "item 12a")
 _HA_NOT_PORTED = ("the HA plane (master/store.py, master/election.py) is "
                   "not ported yet: ROADMAP Queue 1 item 12b")
 # Pure introspection requests (and renew heartbeats) would drown the
@@ -187,6 +189,13 @@ class MasterGateway:
         # single-master semantics — one shard, no election, no store.
         if ha is not None and ha.enabled:
             raise NotImplementedError(_HA_NOT_PORTED)
+        # Elastic slice subsystem (master/slicetxn.py): slice
+        # transactions, gang admission, slice-group leases, /slice/resize
+        # and the re-federation barrier. With the defaults (no queue
+        # timeout, no lease TTL) it is the plain all-or-nothing fan-out
+        # with rollback.
+        self.slices = SliceTxnManager(self)
+        self.broker.bind_slice(self.slices)
         # Telemetry plane: the SLO engine computes per-tenant burn rates
         # from this process's registry; the fleet aggregator scrapes every
         # worker's health port into the /fleetz cluster view and ticks the
@@ -487,9 +496,32 @@ class MasterGateway:
             if method != "POST":
                 return self._method_not_allowed("POST", method, p)
             return self._renew(match["ns"], match["pod"], query)
-        if p in _SLICE_ROUTES:
-            return 501, {"result": "NotImplemented",
-                         "message": f"{p}: {_SLICE_NOT_PORTED}"}
+        if p == "/addgpuslice":
+            if method != "POST":
+                return self._method_not_allowed("POST", method, p)
+            return self._slice_attach(body, rid, ctx)
+        if p == "/removegpuslice":
+            if method != "POST":
+                return self._method_not_allowed("POST", method, p)
+            return self._slice_detach(body, rid, ctx)
+        if p == "/slice/resize":
+            if method != "POST":
+                return self._method_not_allowed("POST", method, p)
+            return self._slice_resize(body, rid, ctx)
+        if p == "/slice/barrier":
+            if method == "GET":
+                group = (query.get("group") or [""])[0]
+                if not group:
+                    return 400, {"result": "BadRequest",
+                                 "message": "?group= is required"}
+                return self.slices.barrier_status(group)
+            if method != "POST":
+                return self._method_not_allowed("GET, POST", method, p)
+            return self._slice_barrier_join(body, rid, ctx)
+        if p == "/slicez":
+            if method != "GET":
+                return self._method_not_allowed("GET", method, p)
+            return 200, self.slices.snapshot()
         if p == "/tracez":
             if method != "GET":
                 return self._method_not_allowed("GET", method, p)
@@ -634,6 +666,169 @@ class MasterGateway:
                     "duration_ms": 0.0,
                     "attrs": {"cause": cause},
                 })
+
+    # -- multi-host slice transactions ------------------------------------------
+
+    def _slice_coordinator(self) -> SliceCoordinator:
+        return SliceCoordinator(self)
+
+    @staticmethod
+    def _parse_slice_body(body: bytes) -> tuple[list[tuple[str, str]], dict]:
+        try:
+            obj = json.loads(body.decode() or "{}")
+        except json.JSONDecodeError as e:
+            raise ValueError(f"bad JSON body: {e}") from e
+        if not isinstance(obj, dict) or not isinstance(obj.get("pods"), list):
+            raise ValueError(
+                'body must be {"pods": [{"namespace": ..., "pod": ...}, '
+                '...], ...}')
+        pods = [(str(p.get("namespace", "default")), str(p["pod"]))
+                for p in obj["pods"] if isinstance(p, dict) and p.get("pod")]
+        if not pods:
+            raise ValueError(
+                'body must be {"pods": [{"namespace": ..., "pod": ...}, '
+                '...], ...}')
+        # A duplicated (namespace, pod) entry would fan out TWO attaches
+        # to the same pod — double slave pods, a double-counted lease,
+        # and a rollback that only targets one of them. Reject precisely
+        # rather than silently dedupe: the caller's host list is wrong.
+        seen: set[tuple[str, str]] = set()
+        for entry in pods:
+            if entry in seen:
+                raise ValueError(
+                    f"duplicate pod {entry[0]}/{entry[1]} in pods[]: "
+                    "each slice member must be listed exactly once")
+            seen.add(entry)
+        return pods, obj
+
+    @staticmethod
+    def _parse_strict(obj: dict) -> bool:
+        strict = obj.get("strict", False)
+        if not isinstance(strict, bool):
+            raise ValueError(f'"strict" must be a boolean, got {strict!r}')
+        return strict
+
+    def _slice_attach(self, body: bytes, rid: str = "-",
+                      ctx: dict | None = None) -> tuple[int, dict]:
+        try:
+            pods, obj = self._parse_slice_body(body)
+            gpus = obj.get("gpusPerHost", 4)
+            if not isinstance(gpus, int) or isinstance(gpus, bool) \
+                    or gpus < 1:
+                raise ValueError(
+                    f"gpusPerHost must be a positive integer, got {gpus!r}")
+            strict = self._parse_strict(obj)
+        except ValueError as e:
+            return 400, {"result": "BadRequest", "message": str(e)}
+        # Tenant resolution for the WHOLE slice (body "tenant"/"priority",
+        # falling back to header then the first pod's namespace). The
+        # slice txn manager runs the reservation-scoped quota admission
+        # for the aggregate GPU count (over-quota → 429 before any host
+        # is touched), the transaction itself, and — with the queue
+        # enabled — gang parking instead of failing fast.
+        tenant = str(obj.get("tenant") or (ctx or {}).get("tenant")
+                     or pods[0][0])
+        priority = str(obj.get("priority") or (ctx or {}).get("priority")
+                       or consts.DEFAULT_PRIORITY)
+        if not _RID_RE.match(tenant):
+            return 400, {"result": "BadRequest",
+                         "message": f"bad tenant {tenant!r}"}
+        if priority not in consts.PRIORITIES:
+            return 400, {"result": "BadRequest",
+                         "message": f"bad priority {priority!r}: want "
+                                    f"{'|'.join(consts.PRIORITIES)}"}
+        try:
+            return self.slices.attach(pods, gpus, tenant=tenant,
+                                      priority=priority, rid=rid,
+                                      strict=strict)
+        except TopologyError as e:
+            # pre-fan-out rejection: no host was touched
+            return 412, {"result": "TopologyMismatch",
+                         "message": str(e)}
+
+    def _slice_barrier_join(self, body: bytes, rid: str = "-",
+                            ctx: dict | None = None) -> tuple[int, dict]:
+        """``POST /slice/barrier`` — a slice member announces it has
+        drained and torn down its old backend and is ready to federate
+        at the named generation (torchcheck/federation.py; protocol in
+        master/slicetxn.py barrier_join). Not an attach: no admission —
+        the GPUs were granted when the generation's txn committed."""
+        try:
+            obj = json.loads(body or b"{}")
+            if not isinstance(obj, dict):
+                raise ValueError("body must be a JSON object")
+            group = obj.get("group")
+            member = obj.get("member")
+            generation = obj.get("generation")
+            if not group or not isinstance(group, str):
+                raise ValueError('"group" (string) is required')
+            if not member or not isinstance(member, str) \
+                    or "/" not in member:
+                raise ValueError('"member" ("namespace/pod") is '
+                                 "required")
+            if not isinstance(generation, int) \
+                    or isinstance(generation, bool):
+                raise ValueError('"generation" (integer) is required')
+            address = obj.get("address") or ""
+            if not isinstance(address, str):
+                raise ValueError('"address" must be a string')
+        except ValueError as e:
+            return 400, {"result": "BadRequest", "message": str(e)}
+        return self.slices.barrier_join(group, generation, member,
+                                        address)
+
+    def _slice_resize(self, body: bytes, rid: str = "-",
+                      ctx: dict | None = None) -> tuple[int, dict]:
+        """``POST /slice/resize`` — reshape a live slice to the body's
+        target membership: the grow half runs as a slice txn joining the
+        existing group, the shrink half detaches through the normal
+        path, and the mesh generation bumps only once the new device set
+        is fully actuated."""
+        try:
+            pods, obj = self._parse_slice_body(body)
+            gpus = obj.get("gpusPerHost")
+            if gpus is not None and (not isinstance(gpus, int)
+                                     or isinstance(gpus, bool)
+                                     or gpus < 1):
+                raise ValueError(
+                    f"gpusPerHost must be a positive integer, got {gpus!r}")
+            strict = self._parse_strict(obj)
+        except ValueError as e:
+            return 400, {"result": "BadRequest", "message": str(e)}
+        tenant = obj.get("tenant") or (ctx or {}).get("tenant")
+        priority = obj.get("priority") or (ctx or {}).get("priority")
+        if tenant is not None and not _RID_RE.match(str(tenant)):
+            return 400, {"result": "BadRequest",
+                         "message": f"bad tenant {tenant!r}"}
+        if priority is not None and priority not in consts.PRIORITIES:
+            return 400, {"result": "BadRequest",
+                         "message": f"bad priority {priority!r}: want "
+                                    f"{'|'.join(consts.PRIORITIES)}"}
+        try:
+            return self.slices.resize(
+                pods, gpus, rid=rid,
+                tenant=str(tenant) if tenant else None,
+                priority=str(priority) if priority else None,
+                group=(str(obj["group"]) if obj.get("group") else None),
+                strict=strict, force=bool(obj.get("force", False)))
+        except TopologyError as e:
+            return 412, {"result": "TopologyMismatch", "message": str(e)}
+
+    def _slice_detach(self, body: bytes, rid: str = "-",
+                      ctx: dict | None = None) -> tuple[int, dict]:
+        try:
+            pods, obj = self._parse_slice_body(body)
+        except ValueError as e:
+            return 400, {"result": "BadRequest", "message": str(e)}
+        force = bool(obj.get("force", False))
+        ok, results = self._slice_coordinator().detach(pods, force,
+                                                       request_id=rid)
+        for r in results:
+            if r.result in DETACH_DONE:
+                self.broker.release(r.namespace, r.pod)
+        return (200 if ok else 409), {
+            "result": "SUCCESS" if ok else "SliceDetachIncomplete",
+            "pods": [r.to_json() for r in results]}
 
     def _call_worker(self, namespace: str, pod_name: str, fn):
         """Resolve pod -> node -> worker and run ``fn(client)``. On

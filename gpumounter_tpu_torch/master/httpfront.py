@@ -310,6 +310,12 @@ class MultiplexedHTTPServer:
     def shutdown(self) -> None:
         self._shutdown.set()
         try:
+            # close() alone leaves the acceptor blocked in accept(2) until
+            # the join below times out (2 s); shutdown(2) wakes it
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
             self._listener.close()
         except OSError:
             pass

@@ -24,9 +24,10 @@ fresh TTL — and crucially, a restart can never double-actuate: the
 re-derived lease simply resumes the countdown.
 
 This is the port of :mod:`gpumounter_tpu.master.lease` on the
-single-master path: the control plane's intent-store write-through
-(``LeaseTable.store``, ``master/store.py``) and slice-group membership
-(``Lease.group``, ``master/slicetxn.py``) arrive with those planes.
+single-master path, with slice-group membership (``Lease.group``,
+``master/slicetxn.py``): the control plane's intent-store write-through
+(``LeaseTable.store``, ``master/store.py``) arrives with the HA plane
+(ROADMAP Queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -67,6 +68,11 @@ class Lease:
     # the lease as stuck rather than silently immortal.
     reap_failures: int = 0
     rederived: bool = False
+    # Slice-group membership (master/slicetxn.py): leases sharing a group
+    # id form ONE multi-host slice and renew/expire/preempt as a unit —
+    # a half-expired slice is useless to the world spanning it.
+    # "" = a plain single-host attachment.
+    group: str = ""
     # Idle marking (the utilization plane: collector/usage.py →
     # master/fleet.py → broker tick): wall-clock time the broker
     # deemed this lease idle — its chips showed zero observed duty for
@@ -105,6 +111,8 @@ class Lease:
             out["uuids"] = sorted(self.uuids)
         if self.reap_failures:
             out["reap_failures"] = self.reap_failures
+        if self.group:
+            out["group"] = self.group
         if self.rederived:
             out["rederived"] = True
         if self.idle_since_unix is not None:
@@ -134,17 +142,20 @@ class LeaseTable:
 
     def record(self, namespace: str, pod: str, tenant: str, priority: str,
                uuids: list[str], chips: int = 0, node: str = "",
-               rid: str = "", ttl_s: float = 0.0) -> Lease:
+               rid: str = "", ttl_s: float = 0.0,
+               group: str = "") -> Lease:
         """Record a successful attach; merges into the pod's existing
         lease (chips union, refreshed expiry, the NEW tenant/priority win
-        — the latest grant is who the pod answers to now)."""
+        — the latest grant is who the pod answers to now). ``group``
+        stamps slice-group membership (master/slicetxn.py)."""
         deadline = (time.monotonic() + ttl_s) if ttl_s > 0 else None
         with self._lock:
             lease = self._leases.get((namespace, pod))
             if lease is None:
                 lease = Lease(namespace, pod, tenant, priority,
                               chips=chips or len(uuids), uuids=set(uuids),
-                              node=node, rid=rid, expires_at=deadline)
+                              node=node, rid=rid, expires_at=deadline,
+                              group=group)
                 self._leases[(namespace, pod)] = lease
             else:
                 lease.tenant = tenant
@@ -160,6 +171,7 @@ class LeaseTable:
                 lease.rid = rid or lease.rid
                 lease.expires_at = deadline
                 lease.rederived = False
+                lease.group = group or lease.group
             self._known_tenants.add(tenant)
         self.export_gauges()
         EVENTS.emit("lease_record", rid=rid, tenant=tenant,
@@ -238,6 +250,29 @@ class LeaseTable:
     def leases(self) -> list[Lease]:
         with self._lock:
             return list(self._leases.values())
+
+    def group_leases(self, group: str) -> list[Lease]:
+        """Every member lease of a slice group — the unit renewal,
+        expiry and preemption operate on (ordered for stable output)."""
+        if not group:
+            return []
+        with self._lock:
+            return sorted((lease for lease in self._leases.values()
+                           if lease.group == group),
+                          key=lambda le: (le.namespace, le.pod))
+
+    def groups(self) -> dict[str, list[Lease]]:
+        """{group id: member leases} across the table (the /slicez
+        view's source of truth — membership IS the lease table, so a
+        detached member leaves its group with no bookkeeping to desync)."""
+        with self._lock:
+            out: dict[str, list[Lease]] = {}
+            for lease in self._leases.values():
+                if lease.group:
+                    out.setdefault(lease.group, []).append(lease)
+        for members in out.values():
+            members.sort(key=lambda le: (le.namespace, le.pod))
+        return out
 
     def usage(self) -> dict[str, int]:
         """Live chips per tenant — the quantity quotas are checked

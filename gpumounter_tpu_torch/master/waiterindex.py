@@ -67,6 +67,7 @@ class WaiterQueue:
         # node -> bucket keys living there ("" holds node-less gangs)
         self._node_keys: dict[str, set[tuple]] = {}
         self._priority_counts: dict[str, int] = {}
+        self._gangs = 0
 
     # -- membership ------------------------------------------------------------
 
@@ -83,6 +84,8 @@ class WaiterQueue:
         self._node_keys.setdefault(key[0], set()).add(key)
         self._priority_counts[waiter.priority] = \
             self._priority_counts.get(waiter.priority, 0) + 1
+        if getattr(waiter, "gang", False):
+            self._gangs += 1
 
     def remove(self, waiter) -> None:
         """Tolerant removal (the queue paths guard with ``in`` anyway)."""
@@ -104,6 +107,8 @@ class WaiterQueue:
             self._priority_counts[waiter.priority] = count
         else:
             self._priority_counts.pop(waiter.priority, None)
+        if getattr(waiter, "gang", False):
+            self._gangs -= 1
 
     def __contains__(self, waiter) -> bool:
         return waiter in self._order
@@ -126,6 +131,9 @@ class WaiterQueue:
 
     def count(self, priority: str) -> int:
         return self._priority_counts.get(priority, 0)
+
+    def gang_count(self) -> int:
+        return self._gangs
 
     def oldest_enqueued_at(self) -> float | None:
         for waiter in self._order:

@@ -2,9 +2,10 @@
 :mod:`gpumounter_tpu.testing.chaos`): :class:`ConnectionDropped`, which the
 HTTP apiserver facade (:mod:`.http_apiserver`) turns into a torn TCP
 connection, and the :class:`Fault` rules a :class:`FaultInjector` applies
-at the fakes' seams (``FakeKubeClient.faults``, ``HttpApiserver.faults``).
-The fault plans, crash points and chaos rigs arrive with the master's
-port.
+at the fakes' seams (``FakeKubeClient.faults``, ``HttpApiserver.faults``),
+and the multi-host slice contract :func:`assert_slice_invariants`. The
+fault plans, crash points, chaos rigs and the store and node-health
+clauses arrive with ROADMAP Queue 1 items 12b, 12c and 12e.
 """
 
 from __future__ import annotations
@@ -13,8 +14,11 @@ import dataclasses
 import threading
 import time
 
+from gpumounter_tpu_torch.k8s import objects
+from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.errors import (K8sApiError,
-                                               KubeletUnavailableError)
+                                               KubeletUnavailableError,
+                                               PodNotFoundError)
 
 
 class ConnectionDropped(K8sApiError):
@@ -112,3 +116,97 @@ class FaultInjector:
     def remaining(self) -> int:
         with self._lock:
             return sum(max(0, f.times) for f in self._faults)
+
+
+def assert_slice_invariants(broker, sims, kube=None) -> None:
+    """The multi-host slice contract after any slice scenario (competing
+    gangs, resizes, rollbacks): **zero half-attached slices**, judged
+    against cluster ground truth across EVERY simulated node.
+
+    1. The broker's lease table accounts exactly the GPUs held across
+       all nodes.
+    2. Every slave pod stamped with a slice txn id that still holds GPUs
+       is backed by a slice-GROUP lease — a txn either committed
+       everywhere or rolled back everywhere.
+    3. No gang waiter is still parked.
+    6. Re-federation barrier sanity: joined ⊆ membership, and a COMPLETE
+       barrier has every member joined.
+    7. ``kube`` given (the master's apiserver view): no mixed-generation
+       world — every member pod of a group carries the same
+       ``tpumounter.io/mesh-generation`` annotation (where stamped).
+
+    (The control plane's clauses 4, the intent store, and 5, node
+    health, come with those planes.)
+    """
+    held: dict[tuple[str, str], int] = {}
+    txn_holders: dict[str, set[tuple[str, str]]] = {}
+    for sim in sims:
+        for pod in sim.slave_pods():
+            labels = objects.labels(pod)
+            if labels.get(consts.WARM_POD_LABEL_KEY) == \
+                    consts.WARM_POD_LABEL_VALUE:
+                continue
+            owner_ns = labels.get(consts.OWNER_NAMESPACE_LABEL_KEY)
+            owner = labels.get(consts.OWNER_POD_LABEL_KEY)
+            if not owner or not owner_ns:
+                continue
+            pkey = (objects.namespace(pod), objects.name(pod))
+            gpus = sum(
+                len(ids)
+                for containers in (sim.podresources.assignments.get(pkey)
+                                   or {}).values()
+                for ids in containers.values())
+            if not gpus:
+                continue
+            held[(owner_ns, owner)] = held.get((owner_ns, owner), 0) \
+                + gpus
+            txn = labels.get(consts.TXN_LABEL_KEY)
+            if txn:
+                txn_holders.setdefault(txn, set()).add((owner_ns, owner))
+    leased = {lease.key: lease.chips for lease in broker.leases.leases()}
+    assert leased == held, \
+        f"broker lease table {leased} != multi-node cluster ground " \
+        f"truth {held} (leaked slice reservation or double-release)"
+    for txn, owners in sorted(txn_holders.items()):
+        for owner in sorted(owners):
+            lease = broker.leases.get(*owner)
+            assert lease is not None and lease.group, \
+                f"HALF-ATTACHED SLICE: txn {txn} holder {owner[0]}/" \
+                f"{owner[1]} holds GPUs without a slice-group lease"
+    with broker._lock:
+        gangs = [w for w in broker._waiters if w.gang]
+    assert not gangs, \
+        f"{len(gangs)} gang waiter(s) still parked: " \
+        f"{[w.rid for w in gangs]}"
+    manager = getattr(broker, "_slice", None)
+    if manager is not None:
+        with manager._lock:
+            barriers = {group: (set(b.joined), set(b.members),
+                                b.completed_unix is not None,
+                                b.generation)
+                        for group, b in manager._barriers.items()}
+        for group, (joined, members, complete, gen) in \
+                sorted(barriers.items()):
+            assert joined <= members, \
+                f"barrier for group {group} gen {gen} counts joins " \
+                f"from non-members: {sorted(joined - members)}"
+            if complete:
+                assert joined == members, \
+                    f"MIXED-GENERATION WORLD: barrier for group " \
+                    f"{group} gen {gen} answered complete with only " \
+                    f"{sorted(joined)} of {sorted(members)} joined"
+    if kube is not None:
+        for group, members in sorted(broker.leases.groups().items()):
+            generations: set[str] = set()
+            for lease in members:
+                try:
+                    pod = kube.get_pod(lease.namespace, lease.pod)
+                except (PodNotFoundError, K8sApiError):
+                    continue    # an absent pod has no annotation
+                raw = (pod.get("metadata", {}).get("annotations")
+                       or {}).get(consts.MESH_GENERATION_ANNOTATION)
+                if raw is not None:
+                    generations.add(raw)
+            assert len(generations) <= 1, \
+                f"MIXED-GENERATION WORLD: group {group} members " \
+                f"carry mesh generations {sorted(generations)}"

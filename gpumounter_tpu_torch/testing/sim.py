@@ -12,9 +12,11 @@ another (a real node's :class:`~gpumounter_tpu_torch.device.enumerator.
 PyEnumerator`): the scheduler hands out whatever UUIDs it enumerates.
 
 ``WorkerRig`` adds the worker stack on a fixture host tree; ``LiveStack``
-puts a real gRPC worker and a real HTTP master in front of it. The HA and
-multi-node stacks (``MultiMasterStack``, ``MultiNodeStack``) arrive with
-the planes they exercise (ROADMAP Queue 1 item 12).
+puts a real gRPC worker and a real HTTP master in front of it;
+``MultiNodeStack`` puts N such workers (GKE GPU nodes) behind one master,
+the multi-host slice topology. The HA stack (``MultiMasterStack``) and
+``MultiNodeStack``'s node-failure and fragmentation primitives arrive with
+the planes they exercise (ROADMAP Queue 1 items 12b-12d).
 """
 
 from __future__ import annotations
@@ -473,3 +475,76 @@ class LiveStack:
         self.health_server.shutdown()
         self.grpc_server.stop(grace=0)
         self.rig.close()
+
+
+class MultiNodeStack:
+    """N simulated GPU nodes (one WorkerRig + live gRPC worker each) behind
+    ONE master — the multi-host slice topology. Node i is ``node-i``, a
+    GKE node (``cloud.google.com/gke-accelerator: nvidia-h100-80gb``,
+    ``n_chips`` allocatable ``nvidia.com/gpu``) holding pod
+    ``workload-i``; the master reads the node objects, so a slice's
+    ``gpusPerHost`` must be the whole host."""
+
+    def __init__(self, hosts: list, n_chips=4, broker_config=None,
+                 gate=False):
+        from gpumounter_tpu_torch.master.admission import AttachBroker
+        from gpumounter_tpu_torch.master.discovery import WorkerDirectory
+        from gpumounter_tpu_torch.master.gateway import MasterGateway
+        from gpumounter_tpu_torch.worker.grpc_server import build_server
+
+        self.rigs: list[WorkerRig] = []
+        self.grpc_servers = []
+        self.grpc_ports: list[int] = []
+        self.master_kube = FakeKubeClient()
+        for i, host in enumerate(hosts):
+            rig = WorkerRig(host, n_chips=n_chips, node=f"node-{i}",
+                            pod_name=f"workload-{i}", gate=gate)
+            node = make_gpu_node(name=f"node-{i}", gpus=n_chips)
+            rig.sim.kube.put_node(node)
+            self.master_kube.put_node(node)
+            self._attach_drain(rig)
+            self.rigs.append(rig)
+            server, port = build_server(rig.service, port=0,
+                                        address="127.0.0.1")
+            server.start()
+            self.grpc_servers.append(server)
+            self.grpc_ports.append(port)
+            self.master_kube.put_pod(worker_pod(
+                f"node-{i}", "127.0.0.1", name=f"w{i}", grpc_port=port))
+            self.master_kube.put_pod(rig.pod)
+        broker = (AttachBroker(self.master_kube, broker_config)
+                  if broker_config is not None else None)
+        self.gateway = MasterGateway(
+            self.master_kube, WorkerDirectory(self.master_kube),
+            broker=broker)
+        self.http_server = self.gateway.serve(port=0, address="127.0.0.1")
+        self.base = f"http://127.0.0.1:{self.http_server.server_port}"
+
+    @staticmethod
+    def _attach_drain(rig: WorkerRig) -> None:
+        from gpumounter_tpu_torch.worker.drain import DrainController
+        rig.drain = DrainController(rig.sim.node)
+        rig.drain.register_flush(rig.service.flush_mesh_generation)
+        rig.service.drain = rig.drain
+
+    def add_workload(self, i: int, name: str) -> objects.Pod:
+        """A second workload pod on node ``i``, provisioned (cgroup +
+        live pid) and visible to BOTH the master and the node's worker.
+        (The control plane's ``spare=`` label for slice repair comes with
+        ROADMAP Queue 1 item 12c.)"""
+        rig = self.rigs[i]
+        pod = rig.sim.add_target_pod(
+            name=name, uid=f"uid-{name}",
+            container_id="containerd://" + (f"{i:02x}" * 32)[:64])
+        rig.provision_container(pod)
+        self.master_kube.put_pod(pod)
+        return pod
+
+    def close(self) -> None:
+        self.gateway.fleet.stop()
+        self.gateway.broker.stop()
+        self.http_server.shutdown()
+        for server in self.grpc_servers:
+            server.stop(grace=0)
+        for rig in self.rigs:
+            rig.close()

@@ -216,6 +216,18 @@ DEFAULT_DEFRAG_BUDGET = 4
 ENV_SLICE_REPAIR_BUDGET = "TPU_SLICE_REPAIR_BUDGET"
 DEFAULT_SLICE_REPAIR_BUDGET = 3
 
+# --- The slice subsystem (master/slice.py, master/slicetxn.py) ----------------
+# The annotation ``POST /slice/resize`` stamps on every member pod once the
+# slice's new device set is fully actuated: the mesh generation an elastic
+# job steers by (the informer-path signal beside ``/slicez``).
+MESH_GENERATION_ANNOTATION = "tpumounter.io/mesh-generation"
+# Annotation key prefixes of the intent store's slice txn and barrier
+# records ("s-"/"rb-" + a digest of the record's identity). The store
+# itself is ROADMAP Queue 1 item 12b; the records are built on every
+# slice attach already.
+STORE_SLICE_ANNOTATION_PREFIX = "tpumounter.io/s-"
+STORE_BARRIER_ANNOTATION_PREFIX = "tpumounter.io/rb-"
+
 # --- The master gateway (master/gateway.py, master/httpfront.py) --------------
 # The names are the control plane's, so one deployment configures both.
 # Fleet aggregator (master/fleet.py) scrape cadence, default 5 s.

@@ -590,6 +590,55 @@ class Registry:
         self.tenant_quota_chips = Gauge(
             "tpumounter_tenant_quota_chips",
             "Configured chip quota by tenant (absent = unlimited)")
+        # The slice subsystem (master/slicetxn.py): every slice
+        # transaction's terminal state by outcome, plus gang hand-backs.
+        self.slice_txns = Counter(
+            "tpumounter_slice_txns_total",
+            "Slice transactions resolved, by outcome (commit/abort/"
+            "adopted_commit/adopted_abort) plus gang hand-backs")
+        for outcome in ("commit", "abort", "adopted_commit",
+                        "adopted_abort", "handback"):
+            self.slice_txns.inc(0.0, outcome=outcome)
+        self.gang_queue_depth = Gauge(
+            "tpumounter_gang_queue_depth",
+            "Whole-slice attach requests parked as gang waiters")
+        self.slice_txns_pending = Gauge(
+            "tpumounter_slice_txns_pending",
+            "Slice transactions currently in flight (fan-out running or "
+            "gang-parked) on this replica")
+        self.slice_txn_oldest_age = Gauge(
+            "tpumounter_slice_txn_oldest_age",
+            "Age in seconds of the oldest in-flight slice transaction "
+            "(0 = none)")
+        self.slice_txns_stranded = Gauge(
+            "tpumounter_slice_txns_stranded",
+            "Slice transaction intent records older than their deadline "
+            "with no resolver driving them — a crashed fan-out nobody "
+            "adopted; doctor CRITs on any")
+        # The re-federation barrier: every transition crosses the one
+        # _barrier_transition seam, paired with a slice_barrier event.
+        self.slice_barriers = Counter(
+            "tpumounter_slice_barriers_total",
+            "Re-federation barrier transitions by kind (armed/join/"
+            "complete/refused/superseded/rearmed)")
+        for transition in ("armed", "join", "complete", "refused",
+                           "superseded", "rearmed"):
+            self.slice_barriers.inc(0.0, transition=transition)
+        self.slice_barriers_incomplete = Gauge(
+            "tpumounter_slice_barriers_incomplete",
+            "Re-federation barriers with members joined < expected; one "
+            "older than TPU_RESIZE_BARRIER_TIMEOUT_S is STUCK (doctor "
+            "WARNs with the missing member names)")
+        # Per-host attach round trip inside a slice fan-out (the slowest
+        # host sets the transaction's wall time).
+        self.slice_host_attach = Histogram(
+            "tpumounter_slice_host_attach_seconds",
+            "Per-host worker attach round-trip inside a slice fan-out "
+            "(the max across hosts is the transaction's critical path)")
+        self.slice_resize = Histogram(
+            "tpumounter_slice_resize_seconds",
+            "End-to-end /slice/resize latency (delta txn + generation "
+            "bump)")
         # SLO engine (utils/slo.py): error-budget burn rate per tenant and
         # objective over each window ("5m"/"1h").
         self.slo_burn_rate = Gauge(

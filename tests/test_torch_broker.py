@@ -7,8 +7,8 @@ the same requests and the same expected answers; result names by role
 (``INSUFFICIENT_TPU``/``INSUFFICIENT_GPU``), audit reasons by device
 (``TPUDetached``/``GPUDetached``), counters as deltas of each package's
 own registry. Both gateways serve the reference's ``/addgpu`` and
-``/removegpu`` routes. The slice route and its admission wait for the
-slice subsystem (ROADMAP Queue 1 item 12a): the port answers 501."""
+``/removegpu`` routes; the slice route (``/addtpuslice`` /
+``/addgpuslice``) is admitted through the same quota gate."""
 
 import json
 import random
@@ -19,7 +19,7 @@ import urllib.request
 
 import pytest
 
-from tests.torch_control_plane import BOTH, IDS, JAX, TORCH, norm_result
+from tests.torch_control_plane import BOTH, IDS, JAX, norm_result
 
 
 @pytest.fixture(params=BOTH, ids=IDS)
@@ -535,7 +535,9 @@ def test_queue_hints_derive_from_waiters_and_lease_horizon(pkg,
 def test_brokerz_transcripts_agree(tmp_path):
     """One admission sequence (grant, over-quota, queue timeout, renew,
     release) through both packages: the statuses, results and /brokerz
-    views agree after the GPU mapping (times and request ids aside)."""
+    views agree after the GPU mapping (times and request ids aside; the
+    process-wide counters as deltas over the sequence, since other tests
+    in the process move each package's registry)."""
     out = []
     for p in BOTH:
         stack = BrokerStack(p, tmp_path / p.name, p.mod(
@@ -544,6 +546,7 @@ def test_brokerz_transcripts_agree(tmp_path):
                 queue_timeout_s=0.1), extra_pods=("w2",))
         try:
             gw = stack.gateway
+            base = gw.handle("GET", "/brokerz")[1]["counters"]
             steps = []
             for call in (lambda: add(gw, "workload", 2, rid="r1"),
                          lambda: add(gw, "w2", 2, tenant="teamB"),
@@ -554,6 +557,9 @@ def test_brokerz_transcripts_agree(tmp_path):
                          lambda: remove(gw, "workload"),
                          lambda: gw.handle("GET", "/brokerz")):
                 status, body = call()
+                if "counters" in body:
+                    body["counters"] = {k: v - base[k] for k, v in
+                                        body["counters"].items()}
                 steps.append((status, _scrub(body)))
             out.append(steps)
         finally:
@@ -612,20 +618,24 @@ def test_version_route(pkg, stack_factory):
 
 
 def test_slice_attach_waits_for_the_slice_subsystem(tmp_path):
-    """The control plane admits a slice through its quota gate; the port
-    has no slice subsystem yet and answers 501 before any admission."""
-    stack = BrokerStack(TORCH, tmp_path, TORCH.mod(
-        "master.admission").BrokerConfig(quotas={"*": 2}))
-    try:
-        body = json.dumps({"pods": [{"namespace": "default",
-                                     "pod": "workload"}],
-                           "gpusPerHost": 4}).encode()
-        status, payload = stack.gateway.handle("POST", "/addgpuslice", body)
-        assert status == 501 and payload["result"] == "NotImplemented"
-        assert "Queue 1 item 12a" in payload["message"]
-        assert stack.gateway.broker.leases.leases() == []
-    finally:
-        stack.close()
+    """Both packages admit a slice through the quota gate, for its whole
+    device count, before any host is touched: over the cap it is 429
+    QuotaExceeded and nothing is leased or attached."""
+    for pkg in BOTH:
+        stack = BrokerStack(pkg, tmp_path / pkg.name, pkg.mod(
+            "master.admission").BrokerConfig(quotas={"*": 2}))
+        try:
+            body = json.dumps({"pods": [{"namespace": "default",
+                                         "pod": "workload"}],
+                               f"{pkg.dev}sPerHost": 4}).encode()
+            status, payload = stack.gateway.handle(
+                "POST", f"/add{pkg.dev}slice", body)
+            assert status == 429 and payload["result"] == "QuotaExceeded"
+            assert payload["tenant"] == "default"
+            assert stack.gateway.broker.leases.leases() == []
+            assert stack.rig.sim.slave_pods() == []
+        finally:
+            stack.close()
 
 
 # -- the waiter index ----------------------------------------------------------

@@ -1,12 +1,13 @@
 """The port's re-federation member side (``torchcheck/federation.py``),
-in process, against the JAX package's master.
+in process, against the JAX package's master and the port's own.
 
-The barrier protocol lives in the control plane (``master/slicetxn.py``);
-a live ``MultiNodeStack`` of the JAX package serves it here, and the
-port's ``BarrierClient`` meets the same typed refusals as the JAX
-client does (``tests/test_federation.py``). The crash between a sharded
-drain and its restore resumes from the checkpoint. The subprocess e2es
-are in ``tests/test_torch_federation_e2e.py``.
+The barrier protocol lives in each master's ``master/slicetxn.py``; a
+live ``MultiNodeStack`` of either package serves it here (fixture
+``master``: the JAX package's, or the port's over GPU nodes of one GPU
+each), and the port's ``BarrierClient`` and ``MasterSliceSignal`` meet
+the same answers from both. The crash between a sharded drain and its
+restore resumes from the checkpoint. The subprocess e2es are in
+``tests/test_torch_federation_e2e.py``.
 """
 
 import json
@@ -55,15 +56,43 @@ def _post(url, obj):
         return e.code, json.loads(e.read())
 
 
-def _target(n, tpus=1):
-    return {"pods": [{"namespace": "default", "pod": f"workload-{i}"}
-                     for i in range(n)], "tpusPerHost": tpus}
+class _Master:
+    """One package's master behind a live MultiNodeStack: its slice
+    routes, its per-host count key and its invariants."""
+
+    def __init__(self, name):
+        self.name = name
+        self.dev = "tpu" if name == "jax" else "gpu"
+
+    def stack(self, tmp_path, hosts=2):
+        if self.name == "jax":
+            from gpumounter_tpu.testing.sim import MultiNodeStack
+            return MultiNodeStack([_host(tmp_path, i) for i in range(hosts)],
+                                  n_chips=2)
+        from tests.torch_slices import stack
+        # GKE GPU nodes of one GPU each: a slice takes whole hosts
+        return stack(tmp_path, hosts=hosts, n_chips=1)
+
+    def target(self, n):
+        return {"pods": [{"namespace": "default", "pod": f"workload-{i}"}
+                         for i in range(n)], f"{self.dev}sPerHost": 1}
+
+    def post(self, stack, route, body):
+        return _post(f"{stack.base}/{route.format(dev=self.dev)}", body)
+
+    def invariants(self, stack):
+        if self.name == "jax":
+            assert_slice_invariants(stack.gateway.broker,
+                                    [r.sim for r in stack.rigs],
+                                    kube=stack.master_kube)
+        else:
+            from tests.torch_slices import invariants
+            invariants(stack)
 
 
-def _stack(tmp_path, hosts=2):
-    from gpumounter_tpu.testing.sim import MultiNodeStack
-    return MultiNodeStack([_host(tmp_path, i) for i in range(hosts)],
-                          n_chips=2)
+@pytest.fixture(params=["jax", "torch"])
+def master(request):
+    return _Master(request.param)
 
 
 def test_constants_match_the_control_plane():
@@ -74,10 +103,10 @@ def test_constants_match_the_control_plane():
     assert consts.SHARDED_FORMAT == jdrain.SHARDED_FORMAT
 
 
-def test_barrier_client_typed_refusals(tmp_path):
-    stack = _stack(tmp_path, hosts=2)
+def test_barrier_client_typed_refusals(tmp_path, master):
+    stack = master.stack(tmp_path, hosts=2)
     try:
-        _, body = _post(f"{stack.base}/addtpuslice", _target(2))
+        _, body = master.post(stack, "add{dev}slice", master.target(2))
         group = body["group"]
         client = fed.BarrierClient(stack.base, group, "default/workload-0")
         out = client.join(1, "127.0.0.1:4000")
@@ -106,33 +135,32 @@ def test_barrier_client_typed_refusals(tmp_path):
         assert jfed.BarrierClient(stack.base, group,
                                   "default/workload-0").wait(
             2, timeout_s=1.0) == plan
+        master.invariants(stack)
     finally:
         stack.close()
 
 
-def test_teardown_retires_the_barrier(tmp_path):
-    stack = _stack(tmp_path, hosts=2)
+def test_teardown_retires_the_barrier(tmp_path, master):
+    stack = master.stack(tmp_path, hosts=2)
     try:
-        _, body = _post(f"{stack.base}/addtpuslice", _target(2))
+        _, body = master.post(stack, "add{dev}slice", master.target(2))
         group = body["group"]
-        _post(f"{stack.base}/removetpuslice", _target(2))
+        master.post(stack, "remove{dev}slice", master.target(2))
         stack.gateway.slices.export_gauges()
         client = fed.BarrierClient(stack.base, group, "default/workload-0")
         with pytest.raises(fed.MembershipRefusedError):
             client.join(1, "127.0.0.1:4000")
         assert client.status() is None
-        assert_slice_invariants(stack.gateway.broker,
-                                [r.sim for r in stack.rigs],
-                                kube=stack.master_kube)
+        master.invariants(stack)
     finally:
         stack.close()
 
 
-def test_master_slice_signal_reads_the_group(tmp_path):
+def test_master_slice_signal_reads_the_group(tmp_path, master):
     from gpumounter_tpu_torch.torchcheck import elastic
-    stack = _stack(tmp_path, hosts=2)
+    stack = master.stack(tmp_path, hosts=2)
     try:
-        _, body = _post(f"{stack.base}/addtpuslice", _target(2))
+        _, body = master.post(stack, "add{dev}slice", master.target(2))
         signal = elastic.MasterSliceSignal(stack.base, body["group"])
         assert signal.generation() == 1 and signal.chips() == 2
         assert elastic.MasterSliceSignal(stack.base, "txn-nope") \

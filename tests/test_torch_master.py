@@ -11,8 +11,9 @@ path both serve with HA, node health and topology off.
   test_fleet.py, test_slo.py and test_tracez.py that the kept planes
   cover, each through both packages with the same inputs and the same
   expected answers.
-- What only the port has: the slice routes answer 501 and
-  ``HAConfig(enabled=True)`` raises, each naming its ROADMAP item.
+- The slice routes answer as the control plane's (``/addgpuslice`` for
+  ``/addtpuslice``), and, what only the port has,
+  ``HAConfig(enabled=True)`` raises naming its ROADMAP item.
 
 The JAX side runs under ``TPU_NODE_HEALTH=0`` and ``TPU_TOPOLOGY=0``
 (fixture ``planes_off``), the states the port serves in."""
@@ -281,12 +282,20 @@ def test_status_route_follows_the_device(pkg, stack):
                                   "/slicez"])
 @pytest.mark.parametrize("method", ["GET", "POST"])
 def test_slice_routes_answer_501_naming_the_roadmap_item(method, path):
-    kube = TORCH.mod("k8s.client").FakeKubeClient()
-    gw = TORCH.mod("master.gateway").MasterGateway(
-        kube, TORCH.mod("master.discovery").WorkerDirectory(kube))
-    status, body = gw.handle(method, path, b"{}")
-    assert status == 501 and body["result"] == "NotImplemented"
-    assert "ROADMAP Queue 1 item 12a" in body["message"]
+    """The slice routes are served (no 501 since the slice subsystem was
+    ported): each method on each route answers what the control plane's
+    does — 405 with its Allow, a 400 for the empty body, /slicez's view."""
+    out = []
+    for pkg in BOTH:
+        kube = pkg.mod("k8s.client").FakeKubeClient()
+        gw = pkg.mod("master.gateway").MasterGateway(
+            kube, pkg.mod("master.discovery").WorkerDirectory(kube))
+        status, body = gw.handle(method, path.replace("gpu", pkg.dev),
+                                 b"{}")
+        out.append((status, body.get("result"), body.get("allow"),
+                    sorted(body)))
+    assert out[0] == out[1]
+    assert out[1][0] != 501
 
 
 @pytest.mark.parametrize("kwargs", [{"shards": 2}, {"election": True},
@@ -314,9 +323,9 @@ def test_ha_config_defaults_agree():
 
 
 def test_planes_the_port_leaves_off(tmp_path):
-    """The port's gateway has no node-health tracker, topology model,
-    defragmenter or slice manager; /topoz is no route, as the control
-    plane's with TPU_TOPOLOGY=0 (this test's environment)."""
+    """The port's gateway has no node-health tracker, topology model or
+    defragmenter; /topoz is no route, as the control plane's with
+    TPU_TOPOLOGY=0 (this test's environment)."""
     out = []
     for p in BOTH:
         kube = p.mod("k8s.client").FakeKubeClient()

@@ -106,7 +106,7 @@ def test_master_boots_attaches_detaches_and_stops(master):
     assert len(rig.sim.slave_pods()) == 1
     status, body = _call(base + "/brokerz")
     assert status == 200 and body["leases"]["count"] == 1
-    assert _call(base + "/addgpuslice", b"{}")[0] == 501
+    assert _call(base + "/addgpuslice", b"{}")[0] == 400
     status, body = _call(base + "/removegpu/namespace/default/pod/workload"
                                 "/force/false", b"")
     assert status == 200 and body["result"] == "SUCCESS"

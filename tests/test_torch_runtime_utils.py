@@ -547,6 +547,37 @@ def test_the_worker_families_are_registered():
         assert seeded in text.splitlines(), seeded
 
 
+def test_the_slice_families_are_registered():
+    """What the slice subsystem records into (master/slice.py,
+    slicetxn.py, the broker's gang gauge), under the control plane's
+    names, types and help texts, with its pre-seeded series."""
+    from gpumounter_tpu.utils.metrics import Registry as JaxRegistry
+    from gpumounter_tpu_torch.utils.metrics import Registry
+    slice_families = {
+        "tpumounter_slice_txns_total", "tpumounter_gang_queue_depth",
+        "tpumounter_slice_txns_pending", "tpumounter_slice_txn_oldest_age",
+        "tpumounter_slice_txns_stranded",
+        "tpumounter_slice_barriers_total",
+        "tpumounter_slice_barriers_incomplete",
+        "tpumounter_slice_host_attach_seconds",
+        "tpumounter_slice_resize_seconds"}
+    port = {f.name: f for f in Registry().families()}
+    jax = {f.name: f for f in JaxRegistry().families()}
+    assert slice_families <= set(port)
+    for name in slice_families:
+        assert type(port[name]).__name__ == type(jax[name]).__name__, name
+        assert port[name].help == jax[name].help, name
+    text = Registry().render_text().splitlines()
+    for outcome in ("commit", "abort", "adopted_commit", "adopted_abort",
+                    "handback"):
+        assert f'tpumounter_slice_txns_total{{outcome="{outcome}"}} 0' \
+            in text, outcome
+    for transition in ("armed", "join", "complete", "refused",
+                       "superseded", "rearmed"):
+        assert ("tpumounter_slice_barriers_total"
+                f'{{transition="{transition}"}} 0') in text, transition
+
+
 def test_the_two_packages_keep_separate_registries():
     from gpumounter_tpu.utils.events import EVENTS as JAX_EVENTS
     from gpumounter_tpu.utils.flight import RECORDER as JAX_RECORDER
