@@ -116,7 +116,27 @@ Phases, each printing one JSON line on stdout:
      removed; 20 timed ``/addgpuslice`` + ``/removegpuslice`` pairs with
      the slice trace's spans and each host's attach time; the slice
      invariants, the agent's fallbacks 0, and the phase under 45 s;
- 14. the kernels line (each entry names the device function and the line
+ 14. ha_attach — a leader fail-over under a live attach
+     (``gpumounter_tpu_torch/testing/ha_attach.py``): the worker of phase
+     11 behind TWO port masters with the HA plane on (2 shards, election,
+     intent store, proxy forwarding, the production renew 2 s and TTL 6 s,
+     group commit), each with its own REST client on the facade, so the
+     election locks and the store's ConfigMaps cross HTTP; ``/addgpu``
+     sent to the peer P is proxied to the owner O and answered with the
+     card's nvidia-smi UUID, its lease record lands in O's shard ConfigMap;
+     the in-pod proof makes ``/removegpu`` answer 409 ``GPU_BUSY`` through
+     both masters; an attach for a second pod parks on O (its waiter record
+     in the store); O is killed (crash: nothing released) and P takes the
+     shard over with a bumped fence, merges the lease and adopts the
+     waiter (timed); after the proof exits the detach through P succeeds
+     and the adopted waiter completes on the same UUID, actuated once;
+     O restarts fresh and does not take the shard back; 20 timed
+     ``/addgpu`` + ``/removegpu`` pairs through the owner and 20 through
+     the non-owner (proxied), with spans and the facade's ConfigMap and pod
+     requests per pair; ``/fleetz`` ``masters`` and ``shard_forwards``;
+     the broker invariants with the store, fallbacks 0, the phase under
+     60 s;
+ 15. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -1541,6 +1561,29 @@ def slice_attach(card: str) -> dict:
             "ok": all(checks.values())}
 
 
+HA_ATTACH_DIR = os.path.join(REPO, "build", "ha_attach")
+
+
+def ha_attach(card: str) -> dict:
+    """A leader fail-over through two of the port's masters with the HA
+    plane on, on this machine's real device layer, with the in-pod proof
+    on the attached card (``testing/ha_attach.py``). The card's UUID must
+    be one nvidia-smi names."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.ha_attach import run_ha_attach
+    from gpumounter_tpu_torch.testing.master_attach import cuda_proof
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_ha_attach(HA_ATTACH_DIR, PyEnumerator(HostPaths()),
+                           cuda_proof)
+    checks = report["checks"]
+    checks["card_is_an_nvidia_smi_uuid"] = (
+        report.get("card", {}).get("uuid") in smi_uuids)
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1747,6 +1790,7 @@ def main() -> int:
     phase("worker_attach", lambda: worker_attach(card))
     phase("master_attach", lambda: master_attach(card))
     phase("slice_attach", lambda: slice_attach(card))
+    phase("ha_attach", lambda: ha_attach(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

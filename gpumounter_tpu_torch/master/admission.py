@@ -43,13 +43,17 @@ families: ``admission_decisions_total{tenant,outcome}``,
    a node-less **gang waiter** on the same queue; a slice group's leases
    renew, expire and are preempted as one.
 
-This is the port of :mod:`gpumounter_tpu.master.admission` on the
-single-master path, with every plane the port does not run yet in the
-off state the control plane defines for it: no HA binding (``store`` and
-``election`` stay None, the control plane's values before ``bind_ha``: no
-waiter persistence or adoption, no cross-shard capacity pokes), no
-node-health fencing (``TPU_NODE_HEALTH=0``) and no defragmenter. Those
-hooks arrive with their planes (ROADMAP Queue 1 items 12b-12d).
+5. **HA** — with the HA plane bound (``bind_ha``: the intent store,
+   the shard ring and this replica's election view) every lease and
+   parked waiter is persisted, admission follows shard ownership, a
+   fenced write demotes the shard, and an acquired shard's persisted
+   intent is rehydrated: leases merged, waiters adopted and re-run under
+   their original request ids.
+
+This is the port of :mod:`gpumounter_tpu.master.admission`, with the
+planes the port does not run yet in the off state the control plane
+defines for them: no node-health fencing (``TPU_NODE_HEALTH=0``) and no
+defragmenter (ROADMAP Queue 1 items 12c and 12d).
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ from gpumounter_tpu_torch.master.lease import Lease, LeaseTable
 from gpumounter_tpu_torch.master.waiterindex import WaiterQueue, _rank
 from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.errors import (K8sApiError, QueueFullError,
-                                               QuotaExceededError)
+                                               QuotaExceededError,
+                                               StoreFencedError)
 from gpumounter_tpu_torch.utils.events import EVENTS
 from gpumounter_tpu_torch.utils.flight import RECORDER
 from gpumounter_tpu_torch.utils.log import get_logger
@@ -132,15 +137,18 @@ class _Waiter:
     """One parked attach request. ``tried_gen`` is the last capacity
     generation this waiter already retried at — the baton-passing that
     lets a wrong-node waiter hand the wakeup to the next in line instead
-    of swallowing it. ``deadline`` is its absolute give-up time."""
+    of swallowing it. ``deadline`` is its absolute give-up time;
+    ``entire`` rides along so the persisted intent record can re-run the
+    exact attach; ``outcome`` is set ("moved") when shard hand-off wakes
+    the waiter to re-route instead of retrying here."""
 
     __slots__ = ("tenant", "priority", "chips", "node", "rid",
                  "namespace", "pod", "enqueued_at", "event", "tried_gen",
-                 "preempted", "deadline", "gang")
+                 "preempted", "entire", "deadline", "outcome", "gang")
 
     def __init__(self, tenant: str, priority: str, chips: int, node: str,
                  rid: str, namespace: str, pod: str, gen: int,
-                 timeout_s: float = 0.0):
+                 entire: bool = False, timeout_s: float = 0.0):
         self.tenant = tenant
         self.priority = priority
         self.chips = chips
@@ -152,9 +160,12 @@ class _Waiter:
         self.event = threading.Event()
         self.tried_gen = gen
         self.preempted = 0     # victims already detached for this waiter
+        self.entire = entire
         self.deadline = self.enqueued_at + timeout_s
+        self.outcome: str | None = None
         # Gang waiter (a parked whole-slice attach, master/slicetxn.py):
-        # node-less — any host freeing GPUs may complete it.
+        # node-less (any host freeing GPUs may complete it) and persisted
+        # as a slice txn record instead of a waiter record.
         self.gang = False
 
 
@@ -192,16 +203,36 @@ class AttachBroker:
         self._rederived = False
         self._loop: threading.Thread | None = None
         self._stop = threading.Event()
-        # HA plane: the intent store and this replica's election view,
-        # None as the control plane's broker holds them before bind_ha
-        # (ROADMAP Queue 1 item 12b) — the slice txn manager's persist
-        # paths read ``store`` and write nothing.
+        # HA plane (bind_ha): the declarative intent store, the shard
+        # ring, and this replica's election view. All None = single-
+        # master semantics, zero ConfigMap traffic.
         self.store = None
+        self.ring = None
         self.election = None
+        # attempt_factory(namespace, pod, chips, entire, rid, node) ->
+        # attempt_fn: how an ADOPTED waiter (rehydrated from a dead
+        # peer's store records) re-runs its attach through the gateway's
+        # worker path. rids already adopted (or currently parked here)
+        # are never adopted twice.
+        self._attempt_factory = None
+        # rid -> shard of every adoption in flight: membership prevents
+        # double-adoption; the shard lets a lost shard's entries be
+        # pruned (a reacquire must re-adopt records a dead peer never
+        # resolved). _adopt_lock serializes every check-then-act on BOTH
+        # structures — rehydration races between the election thread
+        # (acquire), the tick loop (deferred retry) and request threads
+        # (lazy boot) must not adopt one intent twice.
+        self._adopt_lock = threading.Lock()
+        self._adopted_rids: dict[str, int] = {}
+        self._rehydrated_shards: set[int] = set()
         # Slice transaction manager (bind_slice): group-lease expiry and
-        # preemption detach whole slices through it. None = single-host
-        # semantics only.
+        # preemption detach whole slices through it; rehydration hands
+        # it stranded txn records. None = single-host semantics only.
         self._slice = None
+        # A release/expiry/hand-back freed GPUs since the last tick: the
+        # tick stamps the peer shards' capacity poke (request threads
+        # never pay the ConfigMap round trip).
+        self._poke_pending = False
         # Utilization feed (bind_utilization): zero-arg callable →
         # {(namespace, pod): activity dict} from the fleet aggregator's
         # /utilz scrapes. None = no telemetry, no idle marking — the
@@ -210,16 +241,39 @@ class AttachBroker:
         # tenants ever exported on tenant_chips_idle, so a tenant whose
         # idle leases resolved resets to 0 instead of freezing
         self._idle_tenants: set[str] = set()
+        # The fleet defragmenter hands shard rehydration its journaled
+        # moves in the control plane; the port has none (ROADMAP Queue 1
+        # item 12d), so the rehydration's defrag branch stays unreached.
+        self._defrag = None
 
     def bind(self, detach_fn) -> None:
         """``detach_fn(lease, cause, force) -> result name`` — the
         gateway's worker-path detach, used for preemption and expiry."""
         self._detach_fn = detach_fn
 
+    def bind_ha(self, store, ring, election) -> None:
+        """Wire the HA plane: lease mutations write through ``store``
+        (master/store.py), admission ownership follows ``election`` over
+        ``ring``'s shards, and a fenced store write demotes this replica's
+        shard immediately."""
+        self.store = store
+        self.ring = ring
+        self.election = election
+        self.leases.store = store
+        self.leases.on_fenced = self._on_fenced
+        if store is not None:
+            # the group-commit coalescer's fence surface: a fused batch
+            # bounced off a higher fence demotes this replica's shard
+            # exactly like a per-record write raising StoreFencedError
+            store.on_fenced = self._on_fenced
+
+    def bind_attempt_factory(self, factory) -> None:
+        self._attempt_factory = factory
+
     def bind_slice(self, manager) -> None:
         """Wire the slice transaction manager (master/slicetxn.py):
         group-lease expiry and preemption detach whole slices through
-        it, and the tick refreshes its gauges."""
+        it, and shard rehydration hands it stranded txn records."""
         self._slice = manager
 
     def bind_utilization(self, activity_fn) -> None:
@@ -229,6 +283,233 @@ class AttachBroker:
         ``TPU_IDLE_LEASE_S`` — the reclaim signal and the preemption
         victim preference."""
         self._activity_fn = activity_fn
+
+    # -- sharding / ownership --------------------------------------------------
+
+    def shard_of(self, namespace: str) -> int:
+        return self.ring.shard_of(namespace) if self.ring else 0
+
+    def _owns(self, namespace: str) -> bool:
+        if self.election is None:
+            return True
+        return self.election.is_leader(self.shard_of(namespace))
+
+    def _on_fenced(self, err) -> None:
+        """A store write bounced off a higher fence: a peer leads that
+        shard now — demote locally instead of fighting the token. The
+        refused fence is recorded so a later acquisition (e.g. after
+        the lock object was deleted, restarting lock fences at 1) must
+        clear it instead of livelocking acquire→fenced→demote."""
+        if self.election is not None:
+            self.election.note_fence(err.shard, err.fence)
+            self.election.demote(err.shard, str(err))
+
+    def on_shard_acquired(self, shard: int) -> None:
+        """Election hand-off: this replica now owns the shard — load its
+        persisted intent (exact leases AND parked waiters) and drain the
+        recovered waiters as if their clients were still connected (the
+        original request ids make the re-runs idempotent)."""
+        if self.store is not None:
+            # force a fresh read even for a shard this replica held
+            # before: an acquire can be a RESUME after decayed validity,
+            # and the shard map may have moved while we were not acting
+            with self._adopt_lock:
+                self._rehydrated_shards.discard(shard)
+            self._rehydrate_shard(shard)
+        # The store may predate some leases (attaches that only exist as
+        # slave-pod labels) — and with no store at all, the slave-pod
+        # derivation is the ONLY source of the dead leader's leases:
+        # either way the next decision must re-derive cluster ground
+        # truth, same lazy discipline as boot.
+        self._rederived = False
+        self.signal_capacity()
+
+    def on_shard_lost(self, shard: int) -> None:
+        """Deposed: evict the shard's in-memory leases (WITHOUT store
+        deletes — the records belong to the new leader now), drop its
+        parked store mutations, and wake its waiters to re-route."""
+        if self.ring is None:
+            return
+        self.leases.evict_where(
+            lambda lease: self.ring.shard_of(lease.namespace) == shard)
+        if self.store is not None:
+            self.store.forget_shard(shard)
+        with self._adopt_lock:
+            self._rehydrated_shards.discard(shard)
+            # adoption history belongs to the shard: keeping it would
+            # make a later reacquire skip records the interim leader
+            # never resolved, stranding their intent forever
+            for rid in [r for r, s in self._adopted_rids.items()
+                        if s == shard]:
+                del self._adopted_rids[rid]
+        with self._lock:
+            for waiter in self._waiters:
+                if self.ring.shard_of(waiter.namespace) == shard:
+                    waiter.outcome = "moved"
+                    waiter.event.set()
+
+    def _rehydrate_shard(self, shard: int) -> None:
+        if self.store is None:
+            return
+        with self._adopt_lock:
+            if shard in self._rehydrated_shards:
+                return
+            self._rehydrated_shards.add(shard)
+        try:
+            leases, waiters, torn = self.store.rehydrate(shard)
+        except K8sApiError as e:
+            with self._adopt_lock:
+                self._rehydrated_shards.discard(shard)
+            logger.warning("shard %d store rehydration deferred: %s",
+                           shard, e)
+            return
+        merged = self.leases.merge_records(leases)
+        if merged or waiters or torn:
+            logger.info("shard %d rehydrated: %d lease(s) merged, %d "
+                        "waiter(s) to adopt, %d torn record(s)", shard,
+                        merged, len(waiters), torn)
+        self._adopt_waiters(waiters)
+        if self._slice is not None:
+            # unresolved slice transactions (a dead leader's mid-fan-out
+            # state): the manager completes or rolls each back under its
+            # original rid/txn — the zero-half-attached-slices guarantee
+            try:
+                slice_records, _ = self.store.rehydrate_slice_txns(shard)
+            except K8sApiError as e:
+                logger.warning("shard %d slice-txn rehydration deferred: "
+                               "%s (tick retries)", shard, e)
+                slice_records = []
+            if slice_records:
+                adopted = self._slice.adopt(slice_records)
+                logger.info("shard %d: adopted %d stranded slice txn(s)",
+                            shard, adopted)
+            # re-federation barriers the dead leader armed: re-arm them
+            # (joined set restarts empty; members re-join idempotently)
+            # so waiting members keep a coordinator of record
+            try:
+                barrier_records, _ = self.store.rehydrate_barriers(shard)
+            except K8sApiError as e:
+                logger.warning("shard %d barrier rehydration deferred: "
+                               "%s (tick retries)", shard, e)
+                barrier_records = []
+            if barrier_records:
+                rearmed = self._slice.adopt_barriers(barrier_records)
+                logger.info("shard %d: re-armed %d re-federation "
+                            "barrier(s)", shard, rearmed)
+        if self._defrag is not None:
+            # journaled defrag moves the dead leader never resolved:
+            # the actuator adopts each against the group's ACTUAL
+            # membership — old placement or new, never half-moved
+            try:
+                defrag_records, _ = \
+                    self.store.rehydrate_defrag_moves(shard)
+            except K8sApiError as e:
+                logger.warning("shard %d defrag rehydration deferred: "
+                               "%s (tick retries)", shard, e)
+                defrag_records = []
+            if defrag_records:
+                adopted = self._defrag.adopt(defrag_records)
+                logger.info("shard %d: adopted %d stranded defrag "
+                            "move(s)", shard, adopted)
+
+    # -- recovered-waiter adoption ---------------------------------------------
+
+    def _adopt_waiters(self, records) -> int:
+        """Re-run persisted queue intent from a dead (or restarted)
+        leader. Each record becomes a server-side attach under its
+        ORIGINAL rid and remaining deadline — the worker's per-rid
+        idempotent adoption makes a re-run of an attach that actually
+        landed return the same GPUs instead of double-actuating."""
+        if self._attempt_factory is None:
+            return 0
+        adopted = 0
+        with self._lock:
+            live = {w.rid for w in self._waiters}
+        for record in records:
+            with self._adopt_lock:
+                if record.rid in self._adopted_rids or record.rid in live:
+                    continue
+                self._adopted_rids[record.rid] = \
+                    self.shard_of(record.namespace)
+            adopted += 1
+            threading.Thread(target=self._run_adopted, args=(record,),
+                             daemon=True,
+                             name=f"tpumounter-adopt-{record.rid}").start()
+        return adopted
+
+    def _run_adopted(self, record) -> None:
+        remaining = record.deadline_unix - time.time()
+        EVENTS.emit("waiter_adopted", rid=record.rid,
+                    tenant=record.tenant, namespace=record.namespace,
+                    pod=record.pod, chips=record.chips,
+                    remaining_s=round(max(0.0, remaining), 3))
+        if remaining <= 0:
+            # its client's deadline passed while nobody owned the shard:
+            # resolve as a clean timeout — delete the intent so it never
+            # resurrects, and account the outcome
+            REGISTRY.admission_decisions.inc(tenant=record.tenant,
+                                             outcome="queue_timeout")
+            EVENTS.emit("queue_timeout", rid=record.rid,
+                        tenant=record.tenant, chips=record.chips,
+                        priority=record.priority, adopted=True)
+            self._unpersist_rid(record.namespace, record.rid)
+            with self._adopt_lock:
+                self._adopted_rids.pop(record.rid, None)
+            return
+        attempt_fn = self._attempt_factory(
+            record.namespace, record.pod, record.chips, record.entire,
+            record.rid, record.node)
+        try:
+            status, payload = self.attach(
+                tenant=record.tenant, priority=record.priority,
+                namespace=record.namespace, pod=record.pod,
+                chips=record.chips, node=record.node, rid=record.rid,
+                attempt_fn=attempt_fn, entire=record.entire,
+                timeout_s=remaining)
+            logger.info("[rid=%s] adopted waiter resolved: %s / %s",
+                        record.rid, status,
+                        payload.get("result", "-"))
+        except Exception as e:     # noqa: BLE001 — a drain thread dying
+            # would strand the intent record forever; resolve it below
+            logger.warning("[rid=%s] adopted waiter failed: %s",
+                           record.rid, e)
+        finally:
+            # resolved either way (an immediate 200 never parks, so the
+            # queue path's own cleanup may not have run): the intent
+            # record must not outlive its resolution, and neither must
+            # the adoption entry (the record is gone — nothing left to
+            # double-adopt)
+            self._unpersist_rid(record.namespace, record.rid)
+            with self._adopt_lock:
+                self._adopted_rids.pop(record.rid, None)
+
+    # -- waiter persistence (master/store.py write-through) --------------------
+
+    def _persist_waiter(self, waiter: _Waiter, timeout_s: float) -> None:
+        if self.store is None:
+            return
+        from gpumounter_tpu_torch.master.store import WaiterRecord
+        record = WaiterRecord(
+            rid=waiter.rid, namespace=waiter.namespace, pod=waiter.pod,
+            tenant=waiter.tenant, priority=waiter.priority,
+            chips=waiter.chips, node=waiter.node, entire=waiter.entire,
+            enqueued_unix=round(time.time(), 3),
+            deadline_unix=round(time.time() + timeout_s, 3))
+        try:
+            self.store.put_waiter(record)
+        except StoreFencedError as e:
+            self._on_fenced(e)
+
+    def _unpersist_waiter(self, waiter: _Waiter) -> None:
+        self._unpersist_rid(waiter.namespace, waiter.rid)
+
+    def _unpersist_rid(self, namespace: str, rid: str) -> None:
+        if self.store is None:
+            return
+        try:
+            self.store.delete_waiter(namespace, rid)
+        except StoreFencedError as e:
+            self._on_fenced(e)
 
     # -- restart re-derivation -------------------------------------------------
 
@@ -242,6 +523,14 @@ class AttachBroker:
         with self._rederive_lock:
             if self._rederived:
                 return
+            # Persisted intent first: the store's records carry what the
+            # cluster derivation cannot (exact tenant/priority/uuids AND
+            # the parked waiters); the slave-pod derivation below then
+            # fills whatever the store doesn't know — including records
+            # torn by a crash mid-write.
+            if self.store is not None and self.election is not None:
+                for shard in self.election.owned():
+                    self._rehydrate_shard(shard)
             try:
                 self.leases.rederive(self.kube, self.config.pool_namespace,
                                      self.config.resource_name,
@@ -250,6 +539,12 @@ class AttachBroker:
                 logger.warning("lease re-derivation deferred (apiserver "
                                "unreachable): %s", e)
                 return
+            if self.election is not None and self.election.enabled:
+                # cluster derivation sees EVERY owner pod; foreign
+                # shards' leases belong to their leaders (holding them
+                # here would only pollute /brokerz and the reaper)
+                self.leases.evict_where(
+                    lambda lease: not self._owns(lease.namespace))
             self._rederived = True
 
     # -- admission -------------------------------------------------------------
@@ -357,7 +652,7 @@ class AttachBroker:
 
     def attach(self, *, tenant: str, priority: str, namespace: str,
                pod: str, chips: int, node: str, rid: str,
-               attempt_fn,
+               attempt_fn, entire: bool = False,
                timeout_s: float | None = None) -> tuple[int, dict]:
         """Admission-gated attach: quota check, one attempt, then (when
         queueing is enabled) park in the contention queue until capacity
@@ -365,7 +660,8 @@ class AttachBroker:
         makes room. Successful attaches are recorded as leases. The
         admitted chips are held as an in-flight reservation until this
         call returns, so concurrent same-tenant arrivals see them.
-        ``timeout_s`` overrides the configured queue deadline."""
+        ``timeout_s`` overrides the configured queue deadline (adopted
+        waiters park for their REMAINING time, not a fresh window)."""
         with self.admission(tenant, chips, rid):
             gen0 = self._gen
             status, payload = attempt_fn()
@@ -379,7 +675,8 @@ class AttachBroker:
                 return status, payload
             return self._attach_queued(tenant, priority, namespace, pod,
                                        chips, node, rid, attempt_fn,
-                                       status, payload, gen0, timeout)
+                                       status, payload, gen0, entire,
+                                       timeout)
 
     def _record_success(self, namespace: str, pod: str, tenant: str,
                         priority: str, payload: dict, node: str,
@@ -403,14 +700,16 @@ class AttachBroker:
     def _attach_queued(self, tenant: str, priority: str, namespace: str,
                        pod: str, chips: int, node: str, rid: str,
                        attempt_fn, status: int, payload: dict,
-                       gen0: int, timeout: float) -> tuple[int, dict]:
+                       gen0: int, entire: bool,
+                       timeout: float) -> tuple[int, dict]:
         # ``timeout`` was resolved (and gated > 0) by attach() — a second
         # default-resolution here could silently diverge from that gate
         with self._lock:
             depth = self._check_queue_full_locked(tenant, priority,
                                                   chips, rid, gang=False)
             waiter = _Waiter(tenant, priority, chips, node, rid,
-                             namespace, pod, gen=gen0, timeout_s=timeout)
+                             namespace, pod, gen=gen0, entire=entire,
+                             timeout_s=timeout)
             self._waiters.add(waiter)
             if self._gen != gen0:
                 # capacity freed between the failed attempt and the
@@ -419,6 +718,9 @@ class AttachBroker:
                 waiter.tried_gen = self._gen
                 waiter.event.set()
             self._refresh_queue_gauges_locked()
+        # persisted intent (master/store.py): the parked request now
+        # survives this process — a failed-over peer adopts and drains it
+        self._persist_waiter(waiter, timeout)
         deadline = waiter.deadline
         EVENTS.emit("queue_enqueue", rid=rid, tenant=tenant, chips=chips,
                     node=node, namespace=namespace, pod=pod,
@@ -448,6 +750,18 @@ class AttachBroker:
                     payload["retry_after_s"] = round(
                         self._capacity_hint(), 1)
                     return status, payload
+                if waiter.outcome == "moved":
+                    # shard hand-off mid-wait: this replica no longer
+                    # owns the keyspace — tell the client to re-route
+                    # (the retry lands anywhere and is forwarded to the
+                    # new leader; same rid keeps it idempotent)
+                    EVENTS.emit("queue_moved", rid=rid, tenant=tenant,
+                                chips=chips, priority=priority)
+                    return 503, {
+                        "result": "ShardMoved",
+                        "message": "admission shard moved to another "
+                                   "replica mid-queue; retry",
+                        "retry_after_s": 1.0}
                 waiter.event.clear()
                 status, payload = attempt_fn()
                 if status == 200:
@@ -486,6 +800,11 @@ class AttachBroker:
                 # every remaining waiter sleeps to its deadline.
                 self._signal_next_locked()
                 self._refresh_queue_gauges_locked()
+            # the parked intent is resolved (grant, timeout, error or
+            # hand-off): remove its store record — crash is the ONLY
+            # path that leaves one behind, which is exactly the intent
+            # a surviving replica must adopt
+            self._unpersist_waiter(waiter)
 
     # -- gang waiters (whole-slice attaches, master/slicetxn.py) ---------------
 
@@ -520,8 +839,9 @@ class AttachBroker:
         """Park a whole-slice attach in the contention queue. The gang
         rides the SAME priority-then-weighted-fair wakeup as single
         waiters (its GPUs weigh its tenant's fair share), but is
-        node-less — any host freeing GPUs may complete some member.
-        ``gen0`` is the capacity generation sampled BEFORE the failed
+        node-less — any host freeing GPUs may complete some member — and
+        its durable intent is the slice txn record the manager persists,
+        not a waiter record. ``gen0`` is the capacity generation sampled BEFORE the failed
         attempt: a signal that fired in between already went to someone
         else (or nobody), so the gang self-arms instead of sleeping next
         to free GPUs. Raises :class:`QueueFullError` at the per-priority
@@ -532,7 +852,7 @@ class AttachBroker:
             waiter = _Waiter(tenant, priority, chips, node="", rid=rid,
                              namespace=namespace, pod=label,
                              gen=self._gen if gen0 is None else gen0,
-                             timeout_s=timeout_s)
+                             entire=True, timeout_s=timeout_s)
             waiter.gang = True
             self._waiters.add(waiter)
             if gen0 is not None and self._gen != gen0:
@@ -553,6 +873,22 @@ class AttachBroker:
                 self._waiters.remove(waiter)
             self._signal_next_locked()
             self._refresh_queue_gauges_locked()
+
+    def poke_peers(self) -> bool:
+        """Cross-shard capacity nudge: GPUs freed on this replica's
+        shards may be what a PEER shard's parked waiters (gangs
+        especially — multi-node demand) are sleeping on. The request
+        thread only MARKS the nudge; the broker tick sends it — a peer
+        ConfigMap patch is an apiserver round trip that must never ride
+        (or stall) the detach hot path, and batching to tick cadence
+        caps poke traffic regardless of release rate. No-op outside the
+        sharded-store configuration."""
+        if self.store is None or self.ring is None \
+                or self.ring.shards < 2 or self.election is None \
+                or not self.election.enabled:
+            return False
+        self._poke_pending = True
+        return True
 
     def gang_baton(self, waiter: _Waiter) -> None:
         """A woken gang retried and is still short: mark its generation
@@ -693,6 +1029,7 @@ class AttachBroker:
                         result="SUCCESS" if ok else "PARTIAL")
             waiter.preempted += freed_members
             self.signal_capacity()
+            self.poke_peers()
             return True
         return False
 
@@ -756,8 +1093,9 @@ class AttachBroker:
     def release(self, namespace: str, pod: str,
                 uuids: list[str] | None = None) -> None:
         """Account an owner-initiated detach and wake the queue — even
-        without a lease on record (pre-broker attach), freed chips are
-        freed chips."""
+        without a lease on record (pre-broker attach), freed GPUs are
+        freed GPUs. Peer shards get a capacity poke too: their parked
+        gangs may span the node these GPUs just freed on."""
         lease = self.leases.get(namespace, pod)
         released = self.leases.release(namespace, pod, uuids)
         # locality hints from the lease the detach resolved against; a
@@ -765,6 +1103,7 @@ class AttachBroker:
         self.signal_capacity(
             node=lease.node if lease is not None else None,
             chips=released)
+        self.poke_peers()
 
     # -- expiry loop -----------------------------------------------------------
 
@@ -783,6 +1122,12 @@ class AttachBroker:
         if self._loop is not None:
             self._loop.join(timeout=2.0)
             self._loop = None
+        if self.store is not None:
+            # stops the group-commit coalescer thread; deliberately no
+            # final flush — stop() is also the crash path (kill()
+            # semantics in the multi-master stack), and unflushed pending
+            # is exactly the documented best-effort durability window
+            self.store.stop()
 
     def _run(self) -> None:
         while not self._stop.wait(self.config.tick_interval_s):
@@ -793,15 +1138,65 @@ class AttachBroker:
 
     def tick(self, now: float | None = None) -> int:
         """One maintenance pass: reap expired leases (auto-detach through
-        the worker path), mark idle leases, refresh gauges. Returns
-        leases reaped."""
+        the worker path — OWNED shards only, a peer's leases are its
+        leader's to reap), flush dirty store writes, mark idle leases,
+        refresh gauges. Returns leases reaped."""
         self.ensure_rederived()
+        if self.store is not None and self.election is not None:
+            # a rehydration deferred by apiserver trouble (boot or
+            # acquisition) is retried here — a dead leader's persisted
+            # waiters must not stay stranded just because the first
+            # read failed
+            for shard in self.election.owned():
+                with self._adopt_lock:
+                    hydrated = shard in self._rehydrated_shards
+                if not hydrated:
+                    self._rehydrate_shard(shard)
         reaped = 0
         for lease in self.leases.expired(now):
+            if not self._owns(lease.namespace):
+                continue
             if self._reap(lease, now):
                 reaped += 1
+        if self.store is not None:
+            # group-commit backstop: the coalescer thread normally
+            # flushes within its bounded delay; the tick re-drives it so
+            # a wedged/dead flusher degrades to tick-cadence durability
+            # instead of never-durable (flush_pending never raises — the
+            # fence surface is the on_fenced callback bound in bind_ha)
+            self.store.flush_pending()
+            try:
+                self.store.flush_dirty()
+                # batched heartbeat persistence (lease.py renew(): one
+                # CAS per shard instead of one per renewal)
+                self.leases.flush_renewals()
+            except StoreFencedError as e:
+                # a dirty replay bounced off the fence: same recovery as
+                # a direct write — note the refused fence and demote,
+                # and DON'T abort the tick (gauge refresh must still run)
+                self._on_fenced(e)
+            # cross-shard capacity pokes: send any nudge the request
+            # paths marked pending (one stamp per tick regardless of
+            # release rate), then one fresh read per owned shard for
+            # INBOUND nudges — edge-triggered on the stamp
+            if self.ring is not None and self.ring.shards > 1 \
+                    and self.election is not None \
+                    and self.election.enabled:
+                if self._poke_pending:
+                    self._poke_pending = False
+                    self.store.poke_peers(set(self.election.owned()))
+                # inbound check only while someone is actually parked:
+                # with an empty queue the signal would be a no-op, and
+                # one GET per owned shard per tick is real idle-state
+                # apiserver load on a many-shard replica
+                with self._lock:
+                    parked = bool(self._waiters)
+                if parked:
+                    for shard in self.election.owned():
+                        if self.store.check_poke(shard):
+                            self.signal_capacity()
         if self._slice is not None:
-            # slice gauges (and, with the HA plane, stranded adoption)
+            # stranded slice-txn adoption + slice gauges
             self._slice.tick()
         # idle-lease marking from the utilization feed (collector/
         # usage.py → fleet scrapes → here): leases whose chips showed
@@ -831,6 +1226,8 @@ class AttachBroker:
             return
         idle_chips: dict[str, int] = {}
         for lease in self.leases.leases():
+            if not self._owns(lease.namespace):
+                continue
             act = activity.get((lease.namespace, lease.pod))
             if act is None:
                 # telemetry gone (worker dead, sampler disabled, entry
@@ -961,6 +1358,7 @@ class AttachBroker:
                     result="SUCCESS" if ok else "PARTIAL")
         if dropped:
             self.signal_capacity()
+            self.poke_peers()
         if ok:
             return True
         # some member deferred (busy devices): back EVERY surviving
@@ -1013,11 +1411,22 @@ class AttachBroker:
                 # (no idle marking) keeps the payload byte-for-byte
                 tenants[tenant]["idle_chips"] = idle_by_tenant[tenant]
         oldest = max((w["waiting_s"] for w in waiters), default=0.0)
+        ha: dict = {"enabled": False}
+        if self.ring is not None or self.store is not None:
+            ha = {
+                "enabled": True,
+                "shards": self.ring.shards if self.ring else 1,
+                "election": (self.election.snapshot()
+                             if self.election is not None
+                             else {"enabled": False}),
+                "store": (self.store.snapshot()
+                          if self.store is not None else None),
+            }
         return {
             "enabled": bool(self.config.quotas
                             or self.config.lease_ttl_s > 0
                             or self.config.queue_timeout_s > 0),
-            "ha": {"enabled": False},
+            "ha": ha,
             "config": {
                 "quotas": dict(self.config.quotas),
                 "quota_burst": self.config.quota_burst,

@@ -29,11 +29,13 @@ routes: ``POST /addgpuslice`` and ``/removegpuslice`` (body
 /slice/resize``, ``GET/POST /slice/barrier`` (the re-federation barrier)
 and ``GET /slicez``.
 
-The port serves the single-master path. Every plane it does not run yet is
-in the off state the control plane defines for it: no HA (``HAConfig``
-enabled raises), no node health (as ``TPU_NODE_HEALTH=0``), and no
-topology plane or defragmenter (as ``TPU_TOPOLOGY=0``: ``/topoz`` is no
-route).
+With the HA plane on (``HAConfig``: shards, election, intent store) each
+replica admits only the shards it leads; a request for a foreign shard is
+proxied to the leader (or redirected with 307 + ``Location``, or shed with
+503 + ``Retry-After`` while the shard is leaderless). The planes the port
+does not run yet are in the off state the control plane defines for them:
+no node health (as ``TPU_NODE_HEALTH=0``), and no topology plane or
+defragmenter (as ``TPU_TOPOLOGY=0``: ``/topoz`` is no route).
 """
 
 from __future__ import annotations
@@ -56,10 +58,12 @@ from gpumounter_tpu_torch.k8s.client import KubeClient
 from gpumounter_tpu_torch.master.admission import AttachBroker
 from gpumounter_tpu_torch.master.discovery import (WorkerDirectory,
                                                    WorkerNotFoundError)
+from gpumounter_tpu_torch.master.election import NullElection, ShardElection
 from gpumounter_tpu_torch.master.fleet import FleetAggregator
-from gpumounter_tpu_torch.master.shardring import HAConfig
+from gpumounter_tpu_torch.master.shardring import HAConfig, ShardRing
 from gpumounter_tpu_torch.master.slice import DETACH_DONE, SliceCoordinator
 from gpumounter_tpu_torch.master.slicetxn import SliceTxnManager
+from gpumounter_tpu_torch.master.store import IntentStore
 from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.events import EVENTS
 from gpumounter_tpu_torch.utils.errors import (CircuitOpenError, K8sApiError,
@@ -148,8 +152,6 @@ _PLAIN_ROUTES = {"/healthz": "healthz", "/version": "version",
                  "/slice/resize": "sliceresize",
                  "/slice/barrier": "slicebarrier",
                  "/slicez": "slicez"}
-_HA_NOT_PORTED = ("the HA plane (master/store.py, master/election.py) is "
-                  "not ported yet: ROADMAP Queue 1 item 12b")
 # Pure introspection requests (and renew heartbeats) would drown the
 # mount traces in the ring buffer; they are measured (histogram) but not
 # stored.
@@ -185,10 +187,29 @@ class MasterGateway:
         # the normal traced, breaker-guarded worker path.
         self.broker = broker or AttachBroker(kube)
         self.broker.bind(self._broker_detach)
-        # HA plane (docs/guide/HA.md): the default HAConfig is the
-        # single-master semantics — one shard, no election, no store.
-        if ha is not None and ha.enabled:
-            raise NotImplementedError(_HA_NOT_PORTED)
+        # HA plane (docs/guide/HA.md): namespace hash-ring sharding of
+        # admission, per-shard leader election, declarative intent store.
+        # The default HAConfig is the single-master semantics — one
+        # shard, no election, no store, zero ConfigMap traffic.
+        self.ha = ha or HAConfig()
+        self.ring: ShardRing | None = None
+        self.election = None
+        if self.ha.enabled:
+            self.ring = ShardRing(self.ha.shards)
+            if self.ha.election:
+                self.election = ShardElection(
+                    kube, self.ha,
+                    on_acquire=self.broker.on_shard_acquired,
+                    on_lose=self.broker.on_shard_lost)
+            else:
+                self.election = NullElection(self.ha.shards)
+            store = (IntentStore(kube, self.ring, self.ha.namespace,
+                                 election=self.election,
+                                 group_commit_delay_s=self.ha.
+                                 group_commit_delay_s)
+                     if self.ha.store else None)
+            self.broker.bind_ha(store, self.ring, self.election)
+            self.broker.bind_attempt_factory(self._adopted_attempt)
         # Elastic slice subsystem (master/slicetxn.py): slice
         # transactions, gang admission, slice-group leases, /slice/resize
         # and the re-federation barrier. With the defaults (no queue
@@ -219,7 +240,7 @@ class MasterGateway:
             usage_fn=self.broker.leases.usage,
             slo=self.slo,
             tick_interval_s=fleet_interval,
-            ha_fn=lambda: {"enabled": False},
+            ha_fn=self._ha_view,
             # joins scraped chip utilization to the tenant holding the
             # grant (/fleetz per-tenant utilization + idle-lease list)
             lease_lookup=self.broker.leases.get)
@@ -338,6 +359,10 @@ class MasterGateway:
                                  or get(consts.TENANT_HEADER.lower()))
                 ctx["priority"] = (get(consts.PRIORITY_HEADER)
                                    or get(consts.PRIORITY_HEADER.lower()))
+                # one-hop forwarding guard (see _shard_gate): a request a
+                # peer already forwarded is never forwarded again
+                ctx["forwarded"] = bool(get("X-Tpu-Forwarded")
+                                        or get("x-tpu-forwarded"))
         if rid:
             if not _RID_RE.match(rid):
                 return 400, {
@@ -467,6 +492,10 @@ class MasterGateway:
                 return 400, {"result": "BadRequest",
                              "message": f"bad isEntireMount value "
                                         f"{match['entire']!r}"}
+            gate = self._shard_gate(match["ns"], method, path, body, rid,
+                                    ctx)
+            if gate is not None:
+                return gate
             return self._add(match["ns"], match["pod"], int(match["num"]),
                              entire, rid, query, ctx)
         match = _REMOVE_GPU_RE.match(p)
@@ -478,6 +507,10 @@ class MasterGateway:
                 return 400, {"result": "BadRequest",
                              "message": f"bad force value "
                                         f"{match['force']!r}"}
+            gate = self._shard_gate(match["ns"], method, path, body, rid,
+                                    ctx)
+            if gate is not None:
+                return gate
             uuids = _parse_uuids(body, parsed.query)
             return self._remove(match["ns"], match["pod"], uuids,
                                 force, rid)
@@ -495,6 +528,10 @@ class MasterGateway:
         if match:
             if method != "POST":
                 return self._method_not_allowed("POST", method, p)
+            gate = self._shard_gate(match["ns"], method, path, body, rid,
+                                    ctx)
+            if gate is not None:
+                return gate
             return self._renew(match["ns"], match["pod"], query)
         if p == "/addgpuslice":
             if method != "POST":
@@ -514,6 +551,15 @@ class MasterGateway:
                 if not group:
                     return 400, {"result": "BadRequest",
                                  "message": "?group= is required"}
+                # sharded deployments: a ?namespace= (BarrierClient
+                # sends the member's) routes the poll to the shard
+                # leader that owns the barrier, like every slice route
+                namespace = (query.get("namespace") or [""])[0]
+                if namespace:
+                    gate = self._shard_gate(namespace, method, path,
+                                            body, rid, ctx)
+                    if gate is not None:
+                        return gate
                 return self.slices.barrier_status(group)
             if method != "POST":
                 return self._method_not_allowed("GET, POST", method, p)
@@ -720,6 +766,16 @@ class MasterGateway:
             strict = self._parse_strict(obj)
         except ValueError as e:
             return 400, {"result": "BadRequest", "message": str(e)}
+        # Shard gate keyed on the FIRST pod's namespace (the slice's
+        # admission home): under sharding a slice must not span
+        # namespaces, or the foreign-namespace leases would land on a
+        # shard this replica never persists, reaps, or survives a
+        # restart with.
+        gate = (self._slice_shard_guard(pods)
+                or self._shard_gate(pods[0][0], "POST", "/addgpuslice",
+                                    body, rid, ctx))
+        if gate is not None:
+            return gate
         # Tenant resolution for the WHOLE slice (body "tenant"/"priority",
         # falling back to header then the first pod's namespace). The
         # slice txn manager runs the reservation-scoped quota admission
@@ -752,7 +808,9 @@ class MasterGateway:
         drained and torn down its old backend and is ready to federate
         at the named generation (torchcheck/federation.py; protocol in
         master/slicetxn.py barrier_join). Not an attach: no admission —
-        the GPUs were granted when the generation's txn committed."""
+        the GPUs were granted when the generation's txn committed — but
+        shard-gated like every slice route: a join landing on a
+        non-leader replica would lazily arm a split-brain barrier."""
         try:
             obj = json.loads(body or b"{}")
             if not isinstance(obj, dict):
@@ -774,6 +832,10 @@ class MasterGateway:
                 raise ValueError('"address" must be a string')
         except ValueError as e:
             return 400, {"result": "BadRequest", "message": str(e)}
+        gate = self._shard_gate(member.split("/", 1)[0], "POST",
+                                "/slice/barrier", body, rid, ctx)
+        if gate is not None:
+            return gate
         return self.slices.barrier_join(group, generation, member,
                                         address)
 
@@ -795,6 +857,11 @@ class MasterGateway:
             strict = self._parse_strict(obj)
         except ValueError as e:
             return 400, {"result": "BadRequest", "message": str(e)}
+        gate = (self._slice_shard_guard(pods)
+                or self._shard_gate(pods[0][0], "POST", "/slice/resize",
+                                    body, rid, ctx))
+        if gate is not None:
+            return gate
         tenant = obj.get("tenant") or (ctx or {}).get("tenant")
         priority = obj.get("priority") or (ctx or {}).get("priority")
         if tenant is not None and not _RID_RE.match(str(tenant)):
@@ -820,6 +887,11 @@ class MasterGateway:
             pods, obj = self._parse_slice_body(body)
         except ValueError as e:
             return 400, {"result": "BadRequest", "message": str(e)}
+        gate = (self._slice_shard_guard(pods)
+                or self._shard_gate(pods[0][0], "POST", "/removegpuslice",
+                                    body, rid, ctx))
+        if gate is not None:
+            return gate
         force = bool(obj.get("force", False))
         ok, results = self._slice_coordinator().detach(pods, force,
                                                        request_id=rid)
@@ -920,13 +992,121 @@ class MasterGateway:
             breaker.record_success()
             return result
 
+    # -- HA: shard gate + forwarding (master/shardring.py) ---------------------
+
+    def _slice_shard_guard(self, pods) -> tuple[int, dict] | None:
+        """Sharded admission is keyed on namespace: a slice spanning
+        namespaces would record leases for shards this replica does not
+        own — never persisted (the store skips foreign shards), never
+        reaped (the tick skips them), and evicted by the next
+        re-derivation. Reject it up front; single-master (election off)
+        accepts multi-namespace slices unchanged."""
+        if self.ring is None or self.election is None \
+                or not self.election.enabled:
+            return None
+        namespaces = {ns for ns, _ in pods}
+        if len(namespaces) > 1:
+            return 400, {
+                "result": "BadRequest",
+                "message": f"slice pods span namespaces "
+                           f"{sorted(namespaces)}: admission sharding "
+                           "is keyed on namespace, so a slice must stay "
+                           "in one"}
+        return None
+
+    def _shard_gate(self, namespace: str, method: str, path: str,
+                    body: bytes, rid: str,
+                    ctx: dict | None) -> tuple[int, dict] | None:
+        """None = this replica owns the namespace's shard, handle
+        locally. Otherwise the forwarded answer: proxied to the leader
+        (default — clients stay dumb), a 307 + Location under
+        ``TPU_SHARD_FORWARD=redirect``, or 503 + Retry-After when the
+        shard is currently leaderless (failover in progress)."""
+        if self.ring is None or self.election is None \
+                or not self.election.enabled:
+            return None
+        shard = self.ring.shard_of(namespace)
+        if self.election.is_leader(shard):
+            return None
+        retry_hint = round(max(self.ha.renew_interval_s, 1.0), 1)
+        if (ctx or {}).get("forwarded"):
+            # one-hop guard: a forwarded request landing on another
+            # non-owner means the routing tables disagree mid-failover —
+            # bounce to the client rather than ping-pong between peers
+            REGISTRY.shard_forwards.inc(mode=self.ha.forward,
+                                        outcome="loop")
+            return 503, {
+                "result": "ShardLeaderUnknown",
+                "message": f"shard {shard} ownership is in flux "
+                           "(failover in progress)",
+                "retry_after_s": retry_hint}
+        info = self.election.leaders().get(shard)
+        url = (info or {}).get("url", "")
+        if not info or info.get("expired") or not url \
+                or info.get("holder") == self.ha.replica:
+            REGISTRY.shard_forwards.inc(mode=self.ha.forward,
+                                        outcome="no_leader")
+            return 503, {
+                "result": "ShardLeaderUnknown",
+                "message": f"no live leader for shard {shard} yet",
+                "retry_after_s": retry_hint}
+        if self.ha.forward == "redirect":
+            REGISTRY.shard_forwards.inc(mode="redirect", outcome="ok")
+            return 307, {
+                "result": "ShardRedirect",
+                "location": url.rstrip("/") + path,
+                "shard": shard,
+                "leader": info.get("holder", "")}
+        return self._proxy_to_leader(url, method, path, body, rid, ctx,
+                                     shard)
+
+    def _proxy_to_leader(self, base: str, method: str, path: str,
+                         body: bytes, rid: str, ctx: dict | None,
+                         shard: int) -> tuple[int, dict]:
+        url = base.rstrip("/") + path
+        req = urllib.request.Request(url, data=body or None,
+                                     method=method)
+        req.add_header("X-Request-Id", rid)
+        req.add_header("X-Tpu-Forwarded", "1")
+        for header, key in ((consts.TENANT_HEADER, "tenant"),
+                            (consts.PRIORITY_HEADER, "priority")):
+            value = (ctx or {}).get(key)
+            if value:
+                req.add_header(header, value)
+        # a queued attach legitimately holds the upstream connection for
+        # the whole queue deadline — the proxy must outwait it
+        timeout = max(30.0, self.broker.config.queue_timeout_s + 30.0)
+        try:
+            try:
+                with urllib.request.urlopen(req, timeout=timeout) as resp:
+                    status, raw = resp.status, resp.read()
+            except urllib.error.HTTPError as e:
+                status, raw = e.code, e.read()
+        except (urllib.error.URLError, OSError) as e:
+            REGISTRY.shard_forwards.inc(mode="proxy", outcome="error")
+            return 502, {"result": "ShardForwardFailed",
+                         "message": f"shard {shard} leader at {base} "
+                                    f"unreachable: {e}",
+                         "retry_after_s": round(
+                             max(self.ha.renew_interval_s, 1.0), 1)}
+        try:
+            payload = json.loads(raw or b"{}")
+        except ValueError:
+            payload = {"result": "ShardForwardBadPayload",
+                       "message": raw.decode(errors="replace")[:200]}
+        REGISTRY.shard_forwards.inc(mode="proxy", outcome="ok")
+        if isinstance(payload, dict):
+            payload.setdefault("forwarded_shard", shard)
+        return status, payload
+
     def _worker_attach_attempt(self, namespace: str, pod_name: str,
                                chips: int, entire: bool, rid: str,
-                               node: str):
-        """The attach attempt_fn: the worker add_gpu RPC + result
-        accounting + HTTP mapping. Only invoked from inside
-        broker.attach, so admission, queueing and lease recording all
-        wrap it."""
+                               node: str, adopted: bool = False):
+        """The one attach attempt_fn: the worker add_gpu RPC + result
+        accounting + HTTP mapping, shared by the live route (`_add`) and
+        adopted waiter re-runs so the two can never drift. Only invoked
+        from inside broker.attach, so admission, queueing and lease
+        recording all wrap it."""
         assert self.broker is not None
 
         def attempt() -> tuple[int, dict]:
@@ -940,9 +1120,38 @@ class MasterGateway:
                 "device_ids": list(resp.device_ids),
                 "device_paths": list(resp.device_paths),
             }
+            if adopted:
+                payload["adopted"] = True
             return _ADD_HTTP[result], payload
 
         return attempt
+
+    def _adopted_attempt(self, namespace: str, pod_name: str, chips: int,
+                         entire: bool, rid: str, node: str):
+        """attempt_fn factory for a waiter rehydrated from the store:
+        the exact worker RPC `_add` would have run, under the ORIGINAL
+        request id (the worker's per-rid adoption makes the re-run
+        idempotent). Bound via bind_attempt_factory in __init__."""
+        return self._worker_attach_attempt(namespace, pod_name, chips,
+                                           entire, rid, node,
+                                           adopted=True)
+
+    def _ha_view(self) -> dict:
+        """This replica's HA posture for /fleetz: role per shard, peers
+        as the lock records name them, store lag. Store-only (election
+        off) still counts as enabled — a lagging store is exactly what a
+        restart would lose."""
+        if self.election is None:
+            return {"enabled": False}
+        enabled = bool(self.election.enabled
+                       or self.broker.store is not None)
+        view: dict = {"enabled": enabled,
+                      "replica": self.ha.replica,
+                      "shards": self.ha.shards,
+                      "election": self.election.snapshot()}
+        if self.broker.store is not None:
+            view["store"] = self.broker.store.snapshot()
+        return view
 
     def _add(self, namespace: str, pod_name: str, gpu_num: int,
              entire: bool, rid: str = "-", query: dict | None = None,
@@ -977,7 +1186,8 @@ class MasterGateway:
             tenant=tenant, priority=priority, namespace=namespace,
             pod=pod_name, chips=gpu_num, node=node, rid=rid,
             attempt_fn=self._worker_attach_attempt(
-                namespace, pod_name, gpu_num, entire, rid, node))
+                namespace, pod_name, gpu_num, entire, rid, node),
+            entire=entire)
 
     def _remove(self, namespace: str, pod_name: str, uuids: list[str],
                 force: bool, rid: str = "-") -> tuple[int, dict]:
@@ -1141,6 +1351,12 @@ class MasterGateway:
                 allow = obj.get("allow")
                 if status == 405 and allow:
                     self.send_header("Allow", allow)
+                location = obj.get("location")
+                if location and status in (301, 302, 307, 308):
+                    # shard redirect (TPU_SHARD_FORWARD=redirect): the
+                    # payload names the owning replica; lift it into the
+                    # header a redirect-following client acts on
+                    self.send_header("Location", location)
                 self.send_header("Content-Length", str(len(payload)))
                 self.end_headers()
                 self.wfile.write(payload)
@@ -1172,6 +1388,12 @@ class MasterGateway:
         # it exported).
         self.broker.start()
         self.fleet.start()
+        # HA: the election loop acquires/renews this replica's shard
+        # locks; its lifetime is tied to the server's like the loops
+        # above (a stopped master releases nothing — the locks simply
+        # expire and peers take over within one renew interval).
+        if self.election is not None:
+            self.election.start()
         # Flight-recorder bundles written by this master carry the broker
         # state (who held what when the anomaly fired). Registered HERE,
         # symmetric with the removal in shutdown: a gateway constructed
@@ -1185,6 +1407,8 @@ class MasterGateway:
         def shutdown_with_loops():
             self.fleet.stop()
             self.broker.stop()
+            if self.election is not None:
+                self.election.stop()
             # the process-global recorder must not snapshot a stopped
             # broker into later bundles (or retain this gateway forever)
             from gpumounter_tpu_torch.utils.flight import RECORDER

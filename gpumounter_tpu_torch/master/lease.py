@@ -23,11 +23,14 @@ collapse to the namespace-default tenant and ``normal`` priority with a
 fresh TTL — and crucially, a restart can never double-actuate: the
 re-derived lease simply resumes the countdown.
 
-This is the port of :mod:`gpumounter_tpu.master.lease` on the
-single-master path, with slice-group membership (``Lease.group``,
-``master/slicetxn.py``): the control plane's intent-store write-through
-(``LeaseTable.store``, ``master/store.py``) arrives with the HA plane
-(ROADMAP Queue 1 item 12b).
+With the HA plane bound (``LeaseTable.store``, ``master/store.py``)
+every mutation of the table writes through to the intent store, so a
+restarted or failed-over replica rehydrates exact leases (tenant,
+priority, uuids) and needs the slave-pod derivation only for what the
+store does not know.
+
+This is the port of :mod:`gpumounter_tpu.master.lease`, with slice-group
+membership (``Lease.group``, ``master/slicetxn.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import time
 
 from gpumounter_tpu_torch.k8s import objects
 from gpumounter_tpu_torch.utils import consts
+from gpumounter_tpu_torch.utils.errors import StoreFencedError
 from gpumounter_tpu_torch.utils.events import EVENTS
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
@@ -137,6 +141,42 @@ class LeaseTable:
         # every tenant ever exported, so vanished tenants' gauges reset
         # to 0 instead of freezing at their last value
         self._known_tenants: set[str] = set()
+        # Declarative intent store (master/store.py): when bound, EVERY
+        # mutation of this table writes through (the store lint pins
+        # that no mutation site escapes), so a restarted or failed-over
+        # replica rehydrates exact leases instead of the collapsed
+        # slave-pod derivation. None = process-resident semantics.
+        self.store = None
+        # Called with the StoreFencedError when a write proves this
+        # replica was deposed (the broker binds election demotion).
+        self.on_fenced = None
+        # lease keys renewed since the last flush_renewals: heartbeat
+        # persistence is batched through the broker tick, not written
+        # synchronously per renew (see renew())
+        self._renew_dirty: set[tuple[str, str]] = set()
+
+    # -- store write-through ---------------------------------------------------
+
+    def _store_put(self, lease: Lease) -> None:
+        if self.store is None:
+            return
+        from gpumounter_tpu_torch.master.store import LeaseRecord
+        try:
+            self.store.put_lease(LeaseRecord.from_lease(lease))
+        except StoreFencedError as e:
+            logger.warning("lease write fenced: %s", e)
+            if self.on_fenced is not None:
+                self.on_fenced(e)
+
+    def _store_del(self, namespace: str, pod: str) -> None:
+        if self.store is None:
+            return
+        try:
+            self.store.delete_lease(namespace, pod)
+        except StoreFencedError as e:
+            logger.warning("lease delete fenced: %s", e)
+            if self.on_fenced is not None:
+                self.on_fenced(e)
 
     # -- write side ------------------------------------------------------------
 
@@ -173,6 +213,7 @@ class LeaseTable:
                 lease.rederived = False
                 lease.group = group or lease.group
             self._known_tenants.add(tenant)
+        self._store_put(lease)
         self.export_gauges()
         EVENTS.emit("lease_record", rid=rid, tenant=tenant,
                     namespace=namespace, pod=pod, chips=lease.chips,
@@ -189,6 +230,13 @@ class LeaseTable:
             lease.renewals += 1
             lease.reap_failures = 0
             first = lease.renewals == 1
+            # Heartbeats are the highest-frequency mutation: a
+            # synchronous CAS per renew would serialize EVERY lease in a
+            # shard on one ConfigMap's write stream. Batched instead: the
+            # broker tick flushes pending renewals as ONE CAS per shard
+            # (flush_renewals); a failover inside that window rehydrates
+            # an expiry stale by at most one tick + the renew cadence.
+            self._renew_dirty.add((namespace, pod))
         # renewals are heartbeats: emitting every one would cycle the
         # bounded event ring in minutes and evict the admit/preempt
         # evidence it exists to hold (same reason the gateway keeps
@@ -210,9 +258,11 @@ class LeaseTable:
             lease = self._leases.get((namespace, pod))
             if lease is None:
                 return 0
+            gone = False
             if not uuids:
                 released = lease.chips
                 del self._leases[(namespace, pod)]
+                gone = True
             else:
                 requested = set(uuids)
                 if lease.uuids:
@@ -224,6 +274,11 @@ class LeaseTable:
                 lease.chips = max(lease.chips - released, len(lease.uuids))
                 if lease.chips <= 0:
                     del self._leases[(namespace, pod)]
+                    gone = True
+        if gone:
+            self._store_del(namespace, pod)
+        elif released:
+            self._store_put(lease)
         self.export_gauges()
         if released:
             EVENTS.emit("lease_release", rid=lease.rid,
@@ -235,6 +290,8 @@ class LeaseTable:
         """Remove the key's lease (preemption, expiry)."""
         with self._lock:
             lease = self._leases.pop((namespace, pod), None)
+        if lease is not None:
+            self._store_del(namespace, pod)
         self.export_gauges()
         if lease is not None:
             EVENTS.emit("lease_drop", rid=lease.rid, tenant=lease.tenant,
@@ -353,12 +410,93 @@ class LeaseTable:
             derived.update(self._leases)
             self._leases = derived
             self._known_tenants |= {le.tenant for le in derived.values()}
+        self._store_sync()
         self.export_gauges()
         if derived:
             logger.info("lease table re-derived from cluster ground "
                         "truth: %d lease(s), %d chip(s)", len(derived),
                         sum(le.chips for le in derived.values()))
         return len(derived)
+
+    def evict_where(self, pred) -> int:
+        """In-memory eviction WITHOUT store deletes — shard hand-off:
+        the evicted leases' records belong to the shard's new leader, so
+        deleting them from the store would destroy the state it is about
+        to rehydrate."""
+        with self._lock:
+            doomed = [key for key, lease in self._leases.items()
+                      if pred(lease)]
+            for key in doomed:
+                del self._leases[key]
+        self.export_gauges()
+        return len(doomed)
+
+    def merge_records(self, records) -> int:
+        """Rehydrate persisted lease records (master/store.py) into the
+        table; in-process leases win the merge — the store is the ground
+        truth for a FRESH replica, not newer than live memory. No store
+        write-back: the records came from there."""
+        added = 0
+        with self._lock:
+            for record in records:
+                if record.key not in self._leases:
+                    self._leases[record.key] = record.to_lease()
+                    self._known_tenants.add(record.tenant)
+                    added += 1
+        self.export_gauges()
+        return added
+
+    def flush_renewals(self) -> int:
+        """Persist every lease renewed since the last flush, batched to
+        ONE CAS per shard (the broker tick drives this). A key whose
+        lease vanished since the renewal (released/dropped — both wrote
+        their own delete) is simply skipped. Returns records flushed."""
+        if self.store is None:
+            return 0
+        from gpumounter_tpu_torch.master.store import LeaseRecord
+        with self._lock:
+            keys = list(self._renew_dirty)
+            self._renew_dirty.clear()
+            leases = [self._leases[key] for key in keys
+                      if key in self._leases]
+        if not leases:
+            return 0
+        records = [LeaseRecord.from_lease(lease) for lease in leases]
+        try:
+            self.store.put_leases(records)
+        except StoreFencedError as e:
+            logger.warning("renewal flush fenced: %s", e)
+            if self.on_fenced is not None:
+                self.on_fenced(e)
+            return 0
+        return len(records)
+
+    def _store_sync(self) -> None:
+        """Write every held lease through to the store (owned shards
+        only — the store skips foreign shards itself), batched to ONE
+        CAS per shard: re-derivation may have discovered leases that
+        predate the store. Each lease is re-checked to still be the
+        table's CURRENT entry right before serialization — a concurrent
+        release/drop between the snapshot and here must not be
+        resurrected by a stale put."""
+        if self.store is None:
+            return
+        from gpumounter_tpu_torch.master.store import LeaseRecord
+        records = []
+        for lease in self.leases():
+            with self._lock:
+                current = self._leases.get((lease.namespace, lease.pod))
+            if current is not lease:
+                continue
+            records.append(LeaseRecord.from_lease(lease))
+        if not records:
+            return
+        try:
+            self.store.put_leases(records)
+        except StoreFencedError as e:
+            logger.warning("lease sync fenced: %s", e)
+            if self.on_fenced is not None:
+                self.on_fenced(e)
 
     def snapshot(self) -> dict:
         leases = sorted(self.leases(),

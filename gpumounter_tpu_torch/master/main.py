@@ -2,11 +2,11 @@
 port of :mod:`gpumounter_tpu.master.main`).
 
 Run as: ``python -m gpumounter_tpu_torch.master.main``. The environment is
-the control plane's. The master runs the single-master path; where the
-environment asks for a plane that is not ported yet (``TPU_MASTER_SHARDS``
-> 1, the election or the intent store, node health or the topology plane
-not set to ``0``), it logs one WARNING naming the ROADMAP item and serves
-as the control plane does with that plane off.
+the control plane's, the HA plane included (``TPU_MASTER_SHARDS``,
+``TPU_ELECTION``, ``TPU_INTENT_STORE``, ...; all off by default). Where the
+environment asks for a plane that is not ported yet (node health or the
+topology plane not set to ``0``), it logs one WARNING naming the ROADMAP
+item and serves as the control plane does with that plane off.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from gpumounter_tpu_torch.k8s.client import default_kube_client
 from gpumounter_tpu_torch.master.admission import AttachBroker, BrokerConfig
 from gpumounter_tpu_torch.master.discovery import WorkerDirectory
 from gpumounter_tpu_torch.master.gateway import MasterGateway
+from gpumounter_tpu_torch.master.shardring import HAConfig
 from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.config import Settings
 from gpumounter_tpu_torch.utils.log import get_logger
@@ -32,11 +33,6 @@ def unported_planes(settings: Settings, env=None) -> list[str]:
     run yet, each with its ROADMAP item."""
     env = os.environ if env is None else env
     asked = []
-    if (settings.master_shards > 1 or settings.election_enabled
-            or settings.intent_store_enabled):
-        asked.append(f"HA ({consts.ENV_MASTER_SHARDS}="
-                     f"{settings.master_shards}, election/intent store; "
-                     "Queue 1 item 12b)")
     if env.get(consts.ENV_NODE_HEALTH, "1") != "0":
         asked.append(f"node health ({consts.ENV_NODE_HEALTH}; "
                      "Queue 1 item 12c)")
@@ -63,16 +59,21 @@ def main() -> None:
     asked = unported_planes(settings)
     if asked:
         logger.warning("not ported yet (ROADMAP): %s; the master serves "
-                       "the single-master path with these planes off",
-                       "; ".join(asked))
+                       "with these planes off", "; ".join(asked))
+    # HA plane: TPU_MASTER_SHARDS / TPU_ELECTION / TPU_INTENT_STORE —
+    # all default-off = single-master semantics (docs/guide/HA.md).
+    ha = HAConfig.from_settings(settings)
     gateway = MasterGateway(
         kube, directory,
         worker_client_factory=lambda target: WorkerClient(target, tls=tls),
-        broker=broker)
+        broker=broker, ha=ha)
     server = gateway.serve(settings.master_http_port)
-    logger.info("master ready on :%d (quotas=%s lease_ttl=%gs queue=%gs)",
+    logger.info("master ready on :%d (quotas=%s lease_ttl=%gs queue=%gs "
+                "shards=%d election=%s store=%s replica=%s)",
                 settings.master_http_port, settings.tenant_quotas or "off",
-                settings.lease_ttl_s, settings.queue_timeout_s)
+                settings.lease_ttl_s, settings.queue_timeout_s,
+                ha.shards, "on" if ha.election else "off",
+                "on" if ha.store else "off", ha.replica)
     try:
         while True:
             time.sleep(3600)

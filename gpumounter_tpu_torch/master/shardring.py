@@ -1,7 +1,6 @@
 """Admission sharding: the tenant/namespace hash ring and the HA knobs (the
-port of :mod:`gpumounter_tpu.master.shardring`). The port runs the
-single-master default only: the gateway refuses ``HAConfig.enabled``
-until the election and the intent store are ported.
+port of :mod:`gpumounter_tpu.master.shardring`; the ring's hash is the
+control plane's, so replicas of both packages agree on every shard).
 
 One master replica owning ALL broker state is the scale ceiling the
 ROADMAP's "HA / scale-out master" item names: two replicas would

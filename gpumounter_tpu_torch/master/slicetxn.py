@@ -2,15 +2,18 @@
 the re-federation barrier (the port of
 :mod:`gpumounter_tpu.master.slicetxn` on the single-master path).
 
-1. **Transactions.** Every slice attach builds a transaction intent
+1. **Crash safety.** Every slice attach writes a transaction intent
    record (:class:`~gpumounter_tpu_torch.master.store.SliceTxnRecord`:
-   txn id, member pods, GPUs per host, tenant, deadline), appends a
-   per-host commit marker as each host lands, and resolves it at a
-   terminal commit or abort. The control plane persists the record to
-   its intent store so a failed-over leader can adopt it; the port's
-   broker has no store (``broker.store`` is None until the HA plane,
-   ROADMAP Queue 1 item 12b), so the persist paths write nothing and
-   adoption is not here.
+   txn id, member pods, GPUs per host, tenant, deadline) to the
+   per-shard intent store BEFORE any host is touched, appends a per-host
+   commit marker as each host lands, and deletes the record only at
+   terminal commit or abort. A record found at rehydration is therefore
+   exactly a transaction its writer never resolved: the adopting leader
+   re-runs the fan-out under the ORIGINAL request id while the deadline
+   holds (worker per-rid idempotency turns re-runs of landed hosts into
+   adoptions) or rolls every member back through the txn-targeted detach
+   once it has passed. Without the store (``broker.store`` None) the
+   records are built and nothing is written.
 
 2. **Gang admission.** With ``TPU_QUEUE_TIMEOUT_S`` > 0 a slice that
    meets InsufficientGPU parks as a **gang waiter** that reserves
@@ -53,7 +56,9 @@ from gpumounter_tpu_torch.master.slice import (ROLLBACK_CLEAN, PodResult,
 from gpumounter_tpu_torch.master.store import (SliceBarrierRecord,
                                                SliceTxnRecord)
 from gpumounter_tpu_torch.utils import consts
-from gpumounter_tpu_torch.utils.errors import QueueFullError, TopologyError
+from gpumounter_tpu_torch.utils.errors import (QueueFullError,
+                                               StoreFencedError,
+                                               TopologyError)
 from gpumounter_tpu_torch.utils.events import EVENTS
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
@@ -74,12 +79,13 @@ def _pod_key(namespace: str, pod: str) -> str:
 class _LiveTxn:
     """One in-flight transaction, as this replica drives it."""
 
-    __slots__ = ("record", "started", "state")
+    __slots__ = ("record", "started", "state", "adopted")
 
-    def __init__(self, record: SliceTxnRecord):
+    def __init__(self, record: SliceTxnRecord, adopted: bool = False):
         self.record = record
         self.started = time.monotonic()
         self.state = "fanout"            # "fanout" | "parked"
+        self.adopted = adopted
 
 
 class _Barrier:
@@ -101,22 +107,27 @@ class _Barrier:
 
 
 class SliceTxnManager:
-    """Owns every slice transaction a gateway runs (attach, resize, group
-    detach). One per gateway; the broker binds it (``bind_slice``) for
-    group-lease expiry and preemption."""
+    """Owns every slice transaction a gateway runs (attach, resize,
+    adoption, group detach). One per gateway; the broker binds it
+    (``bind_slice``) for group-lease expiry/preemption and failover
+    adoption."""
 
     def __init__(self, gateway):
         self.gateway = gateway
         self.broker = gateway.broker
         self._lock = threading.Lock()
         self._txns: dict[str, _LiveTxn] = {}
+        # txn ids an adoption thread currently drives (pre-registration:
+        # the window between "decided to adopt" and "txn registered")
+        self._adopting: set[str] = set()
         # group id -> {"generation", "gpus_per_host"} — the mesh
         # generation the resize route bumps; membership itself lives in
         # the lease table (a detached member leaves its group with no
         # bookkeeping to desync)
         self._groups: dict[str, dict] = {}
         # group id -> _Barrier: armed on every generation bump (and on a
-        # fresh group's commit); every state change crosses
+        # fresh group's commit). Persisted to the intent store so a
+        # failed-over leader re-arms it; every state change crosses
         # _barrier_transition (lint-pinned).
         self._barriers: dict[str, _Barrier] = {}
         # test seam: a hook between hosts of one fan-out
@@ -138,7 +149,8 @@ class SliceTxnManager:
             with self._lock:
                 if key not in txn.record.committed:
                     txn.record.committed.append(key)
-            # the per-host commit marker, from the fan-out thread itself
+            # the marker is the crash-recovery breadcrumb: persisted the
+            # moment the host lands, from the fan-out thread itself
             self._persist_txn(txn.record)
         return mark
 
@@ -146,13 +158,19 @@ class SliceTxnManager:
         store = self.broker.store
         if store is None:
             return
-        store.put_slice_txn(record)
+        try:
+            store.put_slice_txn(record)
+        except StoreFencedError as e:
+            self.broker._on_fenced(e)
 
     def _unpersist_txn(self, record: SliceTxnRecord) -> None:
         store = self.broker.store
         if store is None:
             return
-        store.delete_slice_txn(record.namespace, record.txn_id)
+        try:
+            store.delete_slice_txn(record.namespace, record.txn_id)
+        except StoreFencedError as e:
+            self.broker._on_fenced(e)
 
     def _rollback(self, pods, txn_id: str, rid: str):
         """Txn-targeted rollback with its own trace: the span feeds
@@ -178,19 +196,22 @@ class SliceTxnManager:
             self._txns.pop(txn.record.txn_id, None)
         self.export_gauges()
 
-    # -- attach (the transaction) ----------------------------------------------
+    # -- attach (the crash-safe transaction) ------------------------------------
 
     def attach(self, pods: list[tuple[str, str]], gpus_per_host: int, *,
                tenant: str, priority: str, rid: str,
                strict: bool = False, txn_id: str | None = None,
                lease_group: str | None = None,
-               timeout_s: float | None = None) -> tuple[int, dict]:
+               timeout_s: float | None = None,
+               adopted: bool = False,
+               committed: list[str] | None = None) -> tuple[int, dict]:
         """The whole slice attach: admission (reservation-scoped for the
         full GPU count), intent record, fan-out with per-host commit
         markers, gang parking on contention, terminal commit/abort.
         Raises :class:`TopologyError` pre-fan-out (→ 412) and the
         broker's admission errors (→ 429). ``timeout_s`` overrides the
-        configured queue deadline."""
+        configured queue deadline (adopted transactions park for their
+        REMAINING time)."""
         total = gpus_per_host * len(pods)
         txn_id = txn_id or ("txn-" + uuid_mod.uuid4().hex[:12])
         lease_group = lease_group or txn_id
@@ -201,12 +222,14 @@ class SliceTxnManager:
                 txn_id=txn_id, rid=rid, tenant=tenant, priority=priority,
                 pods=[_pod_key(ns, pod) for ns, pod in pods],
                 gpus_per_host=gpus_per_host,
+                committed=list(committed or []),
                 created_unix=round(time.time(), 3),
                 deadline_unix=round(time.time() + max(timeout, 0.0), 3),
                 group="" if lease_group == txn_id else lease_group)
-            txn = _LiveTxn(record)
+            txn = _LiveTxn(record, adopted=adopted)
             self._register(txn)
-            # intent BEFORE fan-out
+            # intent BEFORE fan-out: a crash from here on leaves a record
+            # a surviving leader resolves — never a silent half-slice
             self._persist_txn(record)
             try:
                 return self._run(txn, pods, gpus_per_host, tenant,
@@ -230,9 +253,11 @@ class SliceTxnManager:
         waiter = None
         hold_deadline: float | None = None
         enqueued_at: float | None = None
-        # validate inside the FIRST fan-out's trace only — a
-        # TopologyError propagates before any host RPC
-        first = True
+        # validate inside the FIRST fan-out's trace only (adopted re-runs
+        # passed validation when the original request arrived; the
+        # cluster may have drifted, but the per-host attach then reports
+        # precisely) — a TopologyError propagates before any host RPC
+        first = not txn.adopted
         try:
             while True:
                 # capacity generation BEFORE the attempt: a signal that
@@ -330,6 +355,18 @@ class SliceTxnManager:
                         wait_for = min(wait_for, hold_deadline - now)
                     if waiter.event.wait(max(wait_for, 0.01)):
                         waiter.event.clear()
+                        if waiter.outcome == "moved":
+                            # shard hand-off mid-wait: the record (and
+                            # any reserved hosts) now belong to the new
+                            # leader's adoption — resolve NOTHING here
+                            EVENTS.emit("queue_moved", rid=rid,
+                                        tenant=tenant, gang=True)
+                            return 503, {
+                                "result": "ShardMoved",
+                                "message": "admission shard moved to "
+                                           "another replica mid-gang; "
+                                           "retry",
+                                "retry_after_s": 1.0}
                         break           # capacity signal: retry missing
         finally:
             if waiter is not None:
@@ -350,6 +387,7 @@ class SliceTxnManager:
                     hosts=len(pods), clean=clean)
         # the freed GPUs are what some OTHER waiter is sleeping on
         self.broker.signal_capacity()
+        self.broker.poke_peers()
 
     def _commit(self, txn: _LiveTxn, pods, attached, tenant, priority,
                 rid, gpus_per_host, lease_group, waiter,
@@ -367,10 +405,10 @@ class SliceTxnManager:
                 list(result.device_ids), chips=len(result.device_ids),
                 rid=rid, ttl_s=self.broker.config.lease_ttl_s,
                 group=lease_group, node=node)
-        if lease_group != txn.record.txn_id:
-            # the group predates this txn (a resize delta): recover its
-            # generation from the member annotations if this process
-            # lost it, before touching the registry
+        if lease_group != txn.record.txn_id or txn.adopted:
+            # the group may predate this process (resize delta, adopted
+            # txn after failover): recover its generation from the
+            # member annotations before touching the registry
             self._ensure_group_info(
                 lease_group, self.broker.leases.group_leases(lease_group))
         with self._lock:
@@ -386,11 +424,12 @@ class SliceTxnManager:
             # every later resize (membership order = the txn's pod list)
             self._arm_barrier(lease_group, pods, generation)
         self._unpersist_txn(txn.record)
-        REGISTRY.slice_txns.inc(outcome="commit")
+        outcome = "adopted_commit" if txn.adopted else "commit"
+        REGISTRY.slice_txns.inc(outcome=outcome)
         EVENTS.emit("slice_commit", rid=rid, txn=txn.record.txn_id,
                     tenant=tenant, hosts=len(pods),
                     chips=gpus_per_host * len(pods),
-                    group=lease_group, adopted=False)
+                    group=lease_group, adopted=txn.adopted)
         payload: dict = {
             "result": "SUCCESS",
             "rolled_back": False,
@@ -418,15 +457,17 @@ class SliceTxnManager:
             self._unpersist_txn(txn.record)
         else:
             # an unclean rollback IS a stranded condition: keep the
-            # record so a store's reader re-aborts it
+            # record so the tick (or a failed-over peer) re-aborts it
             self._persist_txn(txn.record)
-        REGISTRY.slice_txns.inc(outcome="abort")
+        outcome = "adopted_abort" if txn.adopted else "abort"
+        REGISTRY.slice_txns.inc(outcome=outcome)
         EVENTS.emit("slice_abort", rid=rid, txn=txn.record.txn_id,
                     tenant=tenant, hosts=len(pods),
                     rolled_back=clean, timed_out=timed_out,
-                    adopted=False)
+                    adopted=txn.adopted)
         if attached or any(r.result != _INSUFFICIENT for r in failures):
             self.broker.signal_capacity()
+            self.broker.poke_peers()
         by_key = {_pod_key(r.namespace, r.pod): r for r in failures}
         by_key.update(attached)
         results = [by_key.get(_pod_key(ns, pod),
@@ -439,16 +480,81 @@ class SliceTxnManager:
             "pods": [r.to_json() for r in results],
         }
 
+    # -- failover adoption -----------------------------------------------------
+
     def txn_inflight(self, rid: str) -> bool:
-        """True while a live slice txn carries ``rid`` (the defragmenter
-        polls it before judging a move against a group's membership)."""
+        """True while a live slice txn carries ``rid`` or ANY adoption
+        is still resolving (the defragmenter polls it before judging a
+        move against a group's final membership)."""
         with self._lock:
+            if self._adopting:
+                return True
             return any(t.record.rid == rid for t in self._txns.values())
+
+    def adopt(self, records) -> int:
+        """Resolve slice txn records a dead (or deposed) leader left
+        behind: complete the fan-out under the original rid while the
+        deadline holds, roll back once it has passed. Each record runs in
+        its own thread — adoption must not block the election callback."""
+        adopted = 0
+        for record in records:
+            with self._lock:
+                if record.txn_id in self._txns \
+                        or record.txn_id in self._adopting:
+                    continue
+                self._adopting.add(record.txn_id)
+            adopted += 1
+            threading.Thread(
+                target=self._run_adopted, args=(record,), daemon=True,
+                name=f"tpumounter-slice-adopt-{record.txn_id}").start()
+        return adopted
+
+    def _run_adopted(self, record: SliceTxnRecord) -> None:
+        remaining = record.deadline_unix - time.time()
+        EVENTS.emit("slice_adopted", rid=record.rid, txn=record.txn_id,
+                    tenant=record.tenant, hosts=len(record.pods),
+                    committed=len(record.committed),
+                    remaining_s=round(max(0.0, remaining), 3))
+        try:
+            if remaining <= 0:
+                # its client's deadline passed while nobody owned the
+                # shard: abort — txn-targeted detach of EVERY member is
+                # exact whatever subset actually landed
+                clean, _ = self._rollback(record.members(),
+                                          record.txn_id, record.rid)
+                if clean:
+                    self._unpersist_txn(record)
+                REGISTRY.slice_txns.inc(outcome="adopted_abort")
+                EVENTS.emit("slice_abort", rid=record.rid,
+                            txn=record.txn_id, tenant=record.tenant,
+                            hosts=len(record.pods), rolled_back=clean,
+                            timed_out=True, adopted=True)
+                self.broker.signal_capacity()
+                return
+            status, payload = self.attach(
+                record.members(), record.gpus_per_host,
+                tenant=record.tenant, priority=record.priority,
+                rid=record.rid, txn_id=record.txn_id,
+                lease_group=record.group or record.txn_id,
+                timeout_s=remaining, adopted=True,
+                committed=record.committed)
+            logger.info("[rid=%s] adopted slice txn %s resolved: %s / %s",
+                        record.rid, record.txn_id, status,
+                        payload.get("result", "-"))
+        except Exception as e:     # noqa: BLE001 — a dead adoption
+            # thread would strand the record; the tick re-adopts it
+            logger.warning("[rid=%s] adopted slice txn %s failed: %s",
+                           record.rid, record.txn_id, e)
+        finally:
+            with self._lock:
+                self._adopting.discard(record.txn_id)
+
+    # -- group detach (expiry / preemption / resize shrink) --------------------
 
     def _ensure_group_info(self, group: str, members) -> dict:
         """The group's registry entry, recovering the mesh generation
         from the member pods' ``tpumounter.io/mesh-generation``
-        annotations when this process has none (a restart — the
+        annotations when this process has none (restart/failover — the
         annotation is the persisted half of the signal; max across
         members survives a partial patch). Cached after the first
         recovery."""
@@ -501,19 +607,25 @@ class SliceTxnManager:
         store = self.broker.store
         if store is None:
             return
-        store.put_barrier(SliceBarrierRecord(
-            group=barrier.group, generation=barrier.generation,
-            members=list(barrier.members),
-            created_unix=round(barrier.armed_unix, 3),
-            plan=dict(barrier.plan or {}),
-            completed_unix=(round(barrier.completed_unix, 3)
-                            if barrier.completed_unix else 0.0)))
+        try:
+            store.put_barrier(SliceBarrierRecord(
+                group=barrier.group, generation=barrier.generation,
+                members=list(barrier.members),
+                created_unix=round(barrier.armed_unix, 3),
+                plan=dict(barrier.plan or {}),
+                completed_unix=(round(barrier.completed_unix, 3)
+                                if barrier.completed_unix else 0.0)))
+        except StoreFencedError as e:
+            self.broker._on_fenced(e)
 
     def _unpersist_barrier(self, group: str, namespace: str) -> None:
         store = self.broker.store
         if store is None or not namespace:
             return
-        store.delete_barrier(namespace, group)
+        try:
+            store.delete_barrier(namespace, group)
+        except StoreFencedError as e:
+            self.broker._on_fenced(e)
 
     def _arm_barrier(self, group: str, members, generation: int,
                      rearmed: bool = False) -> None:
@@ -529,9 +641,10 @@ class SliceTxnManager:
         with self._lock:
             old = self._barriers.get(group)
             if old is not None and old.generation > barrier.generation:
-                # generations are monotone: never let a stale arm regress
-                # the barrier — members joining the newer generation
-                # would be refused indefinitely
+                # generations are monotone: never let a stale arm (an
+                # adopted record racing a concurrent resize's bump)
+                # regress the barrier — members joining the newer
+                # generation would be refused indefinitely
                 return
             self._barriers[group] = barrier
         if old is not None and old.completed_unix is None \
@@ -544,6 +657,8 @@ class SliceTxnManager:
             "rearmed" if rearmed else "armed", group,
             barrier.generation, expected=len(keys))
         if not rearmed:
+            # a re-arm came FROM the store record; re-putting it would
+            # spend a CAS to write what is already there
             self._persist_barrier(barrier)
         self.export_gauges()
 
@@ -563,6 +678,36 @@ class SliceTxnManager:
             if barrier.members else ""
         self._unpersist_barrier(group, namespace)
 
+    def adopt_barriers(self, records) -> int:
+        """Re-arm barriers a dead (or deposed) leader persisted. An
+        INCOMPLETE barrier re-arms with the joined set empty — members
+        re-join idempotently, which is cheap next to a lost barrier
+        (members would wait forever on a coordinator that no longer
+        answers). A COMPLETED record restores its frozen plan verbatim:
+        members still polling (or blocked in initialization waiting on
+        one that is) must receive the same plan, never a fresh barrier
+        nobody can complete."""
+        adopted = 0
+        for record in records:
+            with self._lock:
+                current = self._barriers.get(record.group)
+                if current is not None \
+                        and current.generation >= record.generation:
+                    continue
+            self._arm_barrier(record.group, list(record.members),
+                              int(record.generation), rearmed=True)
+            if record.completed_unix and record.plan:
+                with self._lock:
+                    barrier = self._barriers.get(record.group)
+                    if barrier is not None and \
+                            barrier.generation == record.generation:
+                        barrier.joined = {m: "" for m in
+                                          barrier.members}
+                        barrier.plan = dict(record.plan)
+                        barrier.completed_unix = record.completed_unix
+            adopted += 1
+        return adopted
+
     def barrier_join(self, group: str, generation: int, member: str,
                      address: str = "") -> tuple[int, dict]:
         """A member announces it has drained, torn down its old backend,
@@ -576,9 +721,10 @@ class SliceTxnManager:
         with self._lock:
             barrier = self._barriers.get(group)
         if barrier is None:
-            # group alive but no armed barrier (the master restarted):
-            # lazily re-arm at the group's CURRENT generation from the
-            # lease table — the control plane stays the source of truth
+            # group alive but no armed barrier (master restarted with no
+            # store, or the group predates the protocol): lazily re-arm
+            # at the group's CURRENT generation from the lease table —
+            # the control plane stays the source of truth
             members = self.broker.leases.group_leases(group)
             if not members:
                 return 404, {"result": "SliceNotFound", "group": group}
@@ -829,13 +975,55 @@ class SliceTxnManager:
     # -- maintenance (driven by the broker tick) -------------------------------
 
     def tick(self) -> None:
-        """Refresh the gauges (and retire the barriers of groups that are
-        gone). Stranded-record adoption needs the intent store (ROADMAP
-        Queue 1 item 12b)."""
+        """Adopt any stranded record the store's cached view shows that
+        nothing on this replica is driving (a deferred adoption, an
+        unclean abort), then refresh the gauges."""
+        store = self.broker.store
+        if store is not None:
+            for shard in self._store_shards(store):
+                records = self._cached_records(store, shard)
+                stale = [r for r in records if not self._driving(r.txn_id)]
+                if stale:
+                    self.adopt(stale)
         self.export_gauges()
+
+    def _store_shards(self, store):
+        election = self.broker.election
+        return (election.owned() if election is not None
+                else range(store.ring.shards))
+
+    def _driving(self, txn_id: str) -> bool:
+        with self._lock:
+            return txn_id in self._txns or txn_id in self._adopting
+
+    @staticmethod
+    def _cached_records(store, shard) -> list[SliceTxnRecord]:
+        """Slice txn records from the store's OBSERVED annotations —
+        zero apiserver calls; the cache is refreshed by every CAS and by
+        the poke check, which is exactly the cadence stranded-record
+        detection needs."""
+        lock = getattr(store, "_lock", None)
+        cache = getattr(store, "_observed", None)
+        if lock is None or cache is None:
+            return []           # store test doubles carry no cache
+        with lock:
+            observed = cache.get(shard)
+        if observed is None:
+            return []
+        _, annotations = observed
+        out = []
+        for key, value in annotations.items():
+            if not key.startswith(consts.STORE_SLICE_ANNOTATION_PREFIX):
+                continue
+            try:
+                out.append(SliceTxnRecord.from_json(value))
+            except (ValueError, TypeError):
+                continue            # torn: rehydrate counts these
+        return out
 
     def export_gauges(self) -> None:
         now = time.monotonic()
+        wall = time.time()
         # prune generation entries for groups with no leases AND no
         # in-flight txn — membership lives in the lease table, so a
         # fully detached slice must not pin its registry entry forever
@@ -852,7 +1040,11 @@ class SliceTxnManager:
                          default=None)
             orphaned = [group for group in self._barriers
                         if group not in live and group not in in_flight]
-        # a fully-detached group's barrier can never complete — retire it
+        # a fully-detached group's barrier can never complete — retire it.
+        # Swept from the BARRIER map, not just pruned _groups entries: an
+        # adopted barrier whose group was torn down before the failover
+        # has no registry entry at all, and must not page the stuck alert
+        # (or re-adopt its store record) forever
         for group in orphaned:
             self._drop_barrier(group, reason="group-gone")
         with self._lock:
@@ -863,9 +1055,18 @@ class SliceTxnManager:
         REGISTRY.slice_txns_pending.set(pending)
         REGISTRY.slice_txn_oldest_age.set(
             0.0 if oldest is None else round(now - oldest, 3))
-        # stranded = persisted records past their deadline that nothing
-        # drives; with no intent store there are no records
-        REGISTRY.slice_txns_stranded.set(0)
+        # stranded = persisted records past their deadline that NOTHING
+        # drives (no live txn, no adoption thread)
+        stranded = 0
+        store = self.broker.store
+        if store is not None:
+            for shard in self._store_shards(store):
+                for record in self._cached_records(store, shard):
+                    if record.deadline_unix and \
+                            wall > record.deadline_unix \
+                            and not self._driving(record.txn_id):
+                        stranded += 1
+        REGISTRY.slice_txns_stranded.set(stranded)
 
     # -- introspection (/slicez) -----------------------------------------------
 
@@ -874,8 +1075,8 @@ class SliceTxnManager:
         groups_out: dict[str, dict] = {}
         stuck_barriers = 0
         for group, members in sorted(self.broker.leases.groups().items()):
-            # recovering lookup: after a restart the generation comes
-            # back from the member annotations (cached after the first
+            # recovering lookup: after a restart/failover the generation
+            # comes back from the member annotations (cached after the first
             # call, so steady-state snapshots stay GET-free)
             info = self._ensure_group_info(group, members)
             groups_out[group] = {
@@ -907,7 +1108,7 @@ class SliceTxnManager:
                 "pods": list(txn.record.pods),
                 "committed": list(txn.record.committed),
                 "state": txn.state,
-                "adopted": False,
+                "adopted": txn.adopted,
                 "age_s": round(now - txn.started, 3),
             } for txn in self._txns.values()]
         return {

@@ -3,9 +3,10 @@
 HTTP apiserver facade (:mod:`.http_apiserver`) turns into a torn TCP
 connection, and the :class:`Fault` rules a :class:`FaultInjector` applies
 at the fakes' seams (``FakeKubeClient.faults``, ``HttpApiserver.faults``),
-and the multi-host slice contract :func:`assert_slice_invariants`. The
-fault plans, crash points, chaos rigs and the store and node-health
-clauses arrive with ROADMAP Queue 1 items 12b, 12c and 12e.
+the broker contract :func:`assert_broker_invariants` and the multi-host
+slice contract :func:`assert_slice_invariants`, each with its intent-store
+clause. The fault plans, crash points, chaos rigs and the node-health
+clauses arrive with ROADMAP Queue 1 items 12c and 12e.
 """
 
 from __future__ import annotations
@@ -118,7 +119,88 @@ class FaultInjector:
             return sum(max(0, f.times) for f in self._faults)
 
 
-def assert_slice_invariants(broker, sims, kube=None) -> None:
+def _held_by_owner(sim) -> dict[tuple[str, str], int]:
+    """GPUs each owner pod's (non-warm) slave pods hold in the node's
+    kubelet assignment table: cluster ground truth."""
+    held: dict[tuple[str, str], int] = {}
+    for pod in sim.slave_pods():
+        labels = objects.labels(pod)
+        if labels.get(consts.WARM_POD_LABEL_KEY) == \
+                consts.WARM_POD_LABEL_VALUE:
+            continue
+        owner_ns = labels.get(consts.OWNER_NAMESPACE_LABEL_KEY)
+        owner = labels.get(consts.OWNER_POD_LABEL_KEY)
+        if not owner or not owner_ns:
+            continue
+        pkey = (objects.namespace(pod), objects.name(pod))
+        gpus = sum(
+            len(ids)
+            for containers in (sim.podresources.assignments.get(pkey)
+                               or {}).values()
+            for ids in containers.values())
+        if gpus:
+            held[(owner_ns, owner)] = held.get((owner_ns, owner), 0) + gpus
+    return held
+
+
+def _store_view(store):
+    """Every shard's persisted records: ({owner: GPUs} of the lease
+    records, waiter records, slice txn records). Torn records fail."""
+    stored: dict[tuple[str, str], int] = {}
+    waiters, slices = [], []
+    for shard in range(store.ring.shards):
+        lease_records, shard_waiters, torn = store.rehydrate(shard)
+        assert torn == 0, f"shard {shard}: {torn} torn record(s)"
+        for record in lease_records:
+            stored[record.key] = stored.get(record.key, 0) + record.chips
+        waiters.extend(shard_waiters)
+        shard_slices, slice_torn = store.rehydrate_slice_txns(shard)
+        assert slice_torn == 0, \
+            f"shard {shard}: {slice_torn} torn slice txn record(s)"
+        slices.extend(shard_slices)
+    return stored, waiters, slices
+
+
+def assert_broker_invariants(broker, sim, store=None) -> None:
+    """The broker-layer contract after any contention, lease-race,
+    restart or failover scenario:
+
+    1. **Lease table mirrors cluster ground truth**: the GPUs the broker
+       accounts per owner pod are exactly the GPUs that owner's
+       (non-warm) slave pods hold in the kubelet's assignment table.
+    2. **No queue residue**: every waiter has returned.
+    3. **Store mirrors the same truth** (``store`` given — the HA
+       cross-replica view): the persisted lease records across ALL
+       shards account exactly the ground-truth GPUs, and no waiter or
+       slice txn record outlives its resolution — what a failed-over
+       peer would rehydrate is the truth.
+
+    (The control plane's node-death and defrag clauses come with those
+    planes.)
+    """
+    held = _held_by_owner(sim)
+    leased = {lease.key: lease.chips for lease in broker.leases.leases()}
+    assert leased == held, \
+        f"broker lease table {leased} != cluster ground truth {held} " \
+        "(leaked reservation or double-release)"
+    with broker._lock:
+        residue = list(broker._waiters)
+    assert not residue, \
+        f"{len(residue)} waiter(s) still parked in the broker queue"
+    if store is not None:
+        stored, waiter_records, slice_records = _store_view(store)
+        assert stored == held, \
+            f"intent-store lease records {stored} != cluster ground " \
+            f"truth {held} (a failed-over peer would rehydrate a lie)"
+        assert not waiter_records, \
+            f"{len(waiter_records)} waiter record(s) outlived their " \
+            f"resolution: {[w.rid for w in waiter_records]}"
+        assert not slice_records, \
+            f"{len(slice_records)} slice txn record(s) outlived their " \
+            f"resolution: {[r.txn_id for r in slice_records]}"
+
+
+def assert_slice_invariants(broker, sims, kube=None, store=None) -> None:
     """The multi-host slice contract after any slice scenario (competing
     gangs, resizes, rollbacks): **zero half-attached slices**, judged
     against cluster ground truth across EVERY simulated node.
@@ -129,14 +211,16 @@ def assert_slice_invariants(broker, sims, kube=None) -> None:
        is backed by a slice-GROUP lease — a txn either committed
        everywhere or rolled back everywhere.
     3. No gang waiter is still parked.
+    4. ``store`` given: no slice txn record outlives its resolution and
+       none is torn; persisted lease records match ground truth — what a
+       failed-over peer would rehydrate is the truth.
     6. Re-federation barrier sanity: joined ⊆ membership, and a COMPLETE
        barrier has every member joined.
     7. ``kube`` given (the master's apiserver view): no mixed-generation
        world — every member pod of a group carries the same
        ``tpumounter.io/mesh-generation`` annotation (where stamped).
 
-    (The control plane's clauses 4, the intent store, and 5, node
-    health, come with those planes.)
+    (The control plane's clause 5, node health, comes with that plane.)
     """
     held: dict[tuple[str, str], int] = {}
     txn_holders: dict[str, set[tuple[str, str]]] = {}
@@ -210,3 +294,11 @@ def assert_slice_invariants(broker, sims, kube=None) -> None:
             assert len(generations) <= 1, \
                 f"MIXED-GENERATION WORLD: group {group} members " \
                 f"carry mesh generations {sorted(generations)}"
+    if store is not None:
+        stored, _, leftovers = _store_view(store)
+        assert stored == held, \
+            f"intent-store lease records {stored} != cluster ground " \
+            f"truth {held} (a failed-over peer would rehydrate a lie)"
+        assert not leftovers, \
+            f"slice txn record(s) outlived resolution: " \
+            f"{[r.txn_id for r in leftovers]}"

@@ -96,11 +96,12 @@ def cuda_proof(gpu: GPUDevice) -> subprocess.Popen:
                             text=True, env=env)
 
 
-def _http(method: str, url: str, body: bytes | None = None
-          ) -> tuple[int, dict | str]:
+def _http(method: str, url: str, body: bytes | None = None,
+          headers: dict | None = None) -> tuple[int, dict | str]:
     """One request on a fresh connection, as ``curl`` sends it; a JSON
     body is decoded."""
-    req = urllib.request.Request(url, data=body, method=method)
+    req = urllib.request.Request(url, data=body, method=method,
+                                 headers=headers or {})
     try:
         with urllib.request.urlopen(req, timeout=300) as resp:
             status, raw = resp.status, resp.read()

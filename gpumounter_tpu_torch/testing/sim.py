@@ -14,9 +14,10 @@ PyEnumerator`): the scheduler hands out whatever UUIDs it enumerates.
 ``WorkerRig`` adds the worker stack on a fixture host tree; ``LiveStack``
 puts a real gRPC worker and a real HTTP master in front of it;
 ``MultiNodeStack`` puts N such workers (GKE GPU nodes) behind one master,
-the multi-host slice topology. The HA stack (``MultiMasterStack``) and
-``MultiNodeStack``'s node-failure and fragmentation primitives arrive with
-the planes they exercise (ROADMAP Queue 1 items 12b-12d).
+the multi-host slice topology; ``MultiMasterStack`` puts N HA masters
+(election, intent store, shard forwarding) over one cluster and one
+worker. ``MultiNodeStack``'s node-failure and fragmentation primitives
+arrive with the planes they exercise (ROADMAP Queue 1 items 12c, 12d).
 """
 
 from __future__ import annotations
@@ -475,6 +476,172 @@ class LiveStack:
         self.health_server.shutdown()
         self.grpc_server.stop(grace=0)
         self.rig.close()
+
+
+class MultiMasterStack:
+    """N master gateways — each a REAL HTTP front with its own broker,
+    election view and intent store — over ONE fake cluster and one live
+    gRPC worker: the HA control-plane topology (docs/guide/HA.md).
+
+    Every master shares the FakeKubeClient, so election locks and store
+    records written by one replica are cluster state the others observe —
+    exactly the production coordination medium, minus the network.
+    :meth:`kill` has crash semantics (stop serving, stop renewing, clean
+    up NOTHING: lock and intent records survive on the "cluster"), so a
+    peer must take the shard over and drain the persisted waiters.
+    """
+
+    def __init__(self, rig: WorkerRig | None = None, masters: int = 2,
+                 shards: int | None = None, broker_config=None,
+                 store: bool = True, election: bool = True,
+                 forward: str = "proxy",
+                 renew_interval_s: float = 0.15,
+                 lease_duration_s: float = 0.45,
+                 rigs: list[WorkerRig] | None = None,
+                 group_commit_s: float = 0.0):
+        from gpumounter_tpu_torch.master.shardring import ShardRing
+        from gpumounter_tpu_torch.worker.grpc_server import build_server
+
+        # ``rigs=[...]``: N simulated GPU nodes behind the HA masters.
+        # Each rig keeps its own fake cluster (its worker's slave pods
+        # live there); the masters share a separate kube holding worker +
+        # target pods and the election/store ConfigMaps, so broker state
+        # recovery must come from the intent store. Single-rig (the
+        # default) shares the rig's cluster.
+        self.rigs = list(rigs) if rigs is not None else [rig]
+        assert self.rigs and self.rigs[0] is not None
+        self.rig = self.rigs[0]
+        self.kube = (self.rig.sim.kube if rigs is None
+                     else FakeKubeClient())
+        self.shards = shards or masters
+        self.ring = ShardRing(self.shards)
+        self.broker_config = broker_config
+        self.ha_args = dict(store=store, election=election, forward=forward,
+                            renew_interval_s=renew_interval_s,
+                            lease_duration_s=lease_duration_s,
+                            group_commit_s=group_commit_s)
+        self.grpc_servers = []
+        for worker_rig in self.rigs:
+            server, grpc_port = build_server(worker_rig.service, port=0,
+                                             address="127.0.0.1")
+            server.start()
+            self.grpc_servers.append(server)
+            self.kube.put_pod(worker_pod(
+                worker_rig.sim.node, "127.0.0.1",
+                name=f"w-{worker_rig.sim.node}", grpc_port=grpc_port))
+            if rigs is not None:
+                self.kube.put_pod(worker_rig.pod)
+        self.grpc_server = self.grpc_servers[0]
+        self.gateways = []
+        self.http_servers = []
+        self.bases: list[str] = []
+        self.dead: set[int] = set()
+        for i in range(masters):
+            gateway, server, base = self._start_master(i)
+            self.gateways.append(gateway)
+            self.http_servers.append(server)
+            self.bases.append(base)
+
+    def _start_master(self, i: int):
+        import dataclasses
+
+        from gpumounter_tpu_torch.master.admission import AttachBroker
+        from gpumounter_tpu_torch.master.discovery import WorkerDirectory
+        from gpumounter_tpu_torch.master.gateway import MasterGateway
+        from gpumounter_tpu_torch.master.shardring import HAConfig
+
+        args = self.ha_args
+        ha = HAConfig(
+            shards=self.shards, election=args["election"],
+            store=args["store"], replica=f"master-{i}",
+            forward=args["forward"],
+            renew_interval_s=args["renew_interval_s"],
+            lease_duration_s=args["lease_duration_s"],
+            namespace=self.rig.sim.settings.pool_namespace,
+            # 0 (default) = the per-record CAS path; the group-commit
+            # tests pass a real delay
+            group_commit_delay_s=args["group_commit_s"])
+        config = (dataclasses.replace(
+            self.broker_config, quotas=dict(self.broker_config.quotas))
+            if self.broker_config is not None else None)
+        gateway = MasterGateway(
+            self.kube, WorkerDirectory(self.kube),
+            # no per-worker health sidecars in this stack: disable the
+            # fleet scrape (and /tracez stitch) resolution
+            worker_tracez_base=lambda target: None,
+            broker=AttachBroker(self.kube, config), ha=ha)
+        server = gateway.serve(port=0, address="127.0.0.1")
+        base = f"http://127.0.0.1:{server.server_port}"
+        # the ephemeral port exists only now: advertise it — the next
+        # renew writes it into the lock record peers route by
+        ha.advertise_url = base
+        return gateway, server, base
+
+    def live(self) -> list[int]:
+        return [i for i in range(len(self.gateways))
+                if i not in self.dead]
+
+    def wait_converged(self, timeout_s: float = 10.0) -> None:
+        """Block until every shard has a live leader whose advertised URL
+        has propagated into every live replica's routing view."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            owned = set()
+            views_ok = True
+            for i in self.live():
+                election = self.gateways[i].election
+                for shard in range(self.shards):
+                    if election.is_leader(shard):
+                        owned.add(shard)
+                leaders = election.leaders()
+                for shard in range(self.shards):
+                    info = leaders.get(shard)
+                    if not info or info.get("expired") \
+                            or not info.get("url"):
+                        views_ok = False
+            if views_ok and owned == set(range(self.shards)):
+                return
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"election never converged: owned={sorted(owned)} "
+                    f"of {self.shards} shard(s)")
+            time.sleep(0.03)
+
+    def leader_for(self, namespace: str) -> int:
+        """Index of the live master leading the namespace's shard."""
+        shard = self.ring.shard_of(namespace)
+        for i in self.live():
+            if self.gateways[i].election.is_leader(shard):
+                return i
+        raise AssertionError(f"no live leader for shard {shard}")
+
+    def kill(self, i: int) -> None:
+        """Crash master ``i``: stop serving and stop every loop (incl.
+        election renewal) but clean up NOTHING — its lock records simply
+        expire and its store records await the next leader, exactly like
+        a SIGKILL'd replica."""
+        self.dead.add(i)
+        self.http_servers[i].shutdown()
+
+    def restart(self, i: int) -> None:
+        """Bring master ``i`` back as a FRESH replica under the same
+        identity (a Deployment restarting the pod): new broker, election
+        view and store over the same cluster, on a new port."""
+        assert i in self.dead, f"master {i} is still running"
+        gateway, server, base = self._start_master(i)
+        self.gateways[i] = gateway
+        self.http_servers[i] = server
+        self.bases[i] = base
+        self.dead.discard(i)
+
+    def close(self) -> None:
+        for i in self.live():
+            self.http_servers[i].shutdown()
+            self.dead.add(i)
+        for server in self.grpc_servers:
+            server.stop(grace=0)
+        for rig in self.rigs:
+            rig.close()
 
 
 class MultiNodeStack:

@@ -189,6 +189,8 @@ ENV_QUEUE_DEPTH = "TPU_QUEUE_DEPTH"
 ENV_WAITER_INDEX = "TPU_WAITER_INDEX"
 ENV_STORE_GROUP_COMMIT = "TPU_STORE_GROUP_COMMIT"
 DEFAULT_STORE_GROUP_COMMIT_S = 0.01
+# Pending-mutation count that flushes the coalescer before the delay.
+STORE_GROUP_COMMIT_MAX_KEYS = 128
 ENV_MASTER_SHARDS = "TPU_MASTER_SHARDS"
 ENV_ELECTION = "TPU_ELECTION"
 ENV_ELECTION_RENEW_S = "TPU_ELECTION_RENEW_S"
@@ -221,12 +223,29 @@ DEFAULT_SLICE_REPAIR_BUDGET = 3
 # slice's new device set is fully actuated: the mesh generation an elastic
 # job steers by (the informer-path signal beside ``/slicez``).
 MESH_GENERATION_ANNOTATION = "tpumounter.io/mesh-generation"
-# Annotation key prefixes of the intent store's slice txn and barrier
-# records ("s-"/"rb-" + a digest of the record's identity). The store
-# itself is ROADMAP Queue 1 item 12b; the records are built on every
-# slice attach already.
+
+# --- The HA plane (master/store.py, master/election.py) -----------------------
+# Cluster objects the HA plane persists through (pool namespace): per-shard
+# broker state (annotation records) and per-shard election locks. The names
+# are the control plane's, so one cluster's replicas of either package
+# coordinate through the same objects.
+STORE_CONFIGMAP_PREFIX = "tpu-mounter-broker-state-"
+ELECTION_CONFIGMAP_PREFIX = "tpu-mounter-election-"
+# Annotation key prefixes of the store's records ("l-"/"w-"/"s-"/"rb-"/
+# "defrag-" + a digest of the record's identity; annotation names are
+# length-capped, so the identity lives IN the record) and the fencing token.
+STORE_LEASE_ANNOTATION_PREFIX = "tpumounter.io/l-"
+STORE_WAITER_ANNOTATION_PREFIX = "tpumounter.io/w-"
 STORE_SLICE_ANNOTATION_PREFIX = "tpumounter.io/s-"
 STORE_BARRIER_ANNOTATION_PREFIX = "tpumounter.io/rb-"
+STORE_DEFRAG_ANNOTATION_PREFIX = "tpumounter.io/defrag-"
+STORE_FENCE_ANNOTATION = "tpumounter.io/fence"
+# Cross-shard capacity nudge (master/store.py poke_peers): a leader that
+# freed GPUs stamps this (a coarse wall-clock time) on every PEER shard's
+# state ConfigMap; each leader's broker tick re-attempts its parked waiters
+# when the stamp moved. Fence-exempt: it carries no state, only "look
+# again".
+STORE_CAPACITY_POKE_ANNOTATION = "tpumounter.io/capacity-poke"
 
 # --- The master gateway (master/gateway.py, master/httpfront.py) --------------
 # The names are the control plane's, so one deployment configures both.

@@ -590,6 +590,52 @@ class Registry:
         self.tenant_quota_chips = Gauge(
             "tpumounter_tenant_quota_chips",
             "Configured chip quota by tenant (absent = unlimited)")
+        # The HA plane (master/store.py, master/election.py, the
+        # gateway's shard gate). store_cas counts every intent-store
+        # compare-and-swap by op and outcome; conflicts are normal CAS
+        # churn between replicas, errors mean records parked dirty (see
+        # store_lag).
+        self.store_cas = Counter(
+            "tpumounter_store_cas_total",
+            "Intent-store ConfigMap compare-and-swap attempts by op and "
+            "outcome (conflict = lost an optimistic-concurrency race)")
+        for outcome in ("ok", "conflict", "error"):
+            self.store_cas.inc(0.0, op="put", outcome=outcome)
+        self.store_records = Gauge(
+            "tpumounter_store_records",
+            "Intent records this replica has persisted in its owned "
+            "shards' state ConfigMaps, by kind (lease/waiter) and shard")
+        self.store_lag = Gauge(
+            "tpumounter_store_lag",
+            "Seconds since the oldest broker mutation that has not yet "
+            "reached the intent store (0 = store in sync)")
+        # Per-shard leadership as THIS replica sees it; max by (shard)
+        # across replicas == 0 means the shard is leaderless.
+        self.election_is_leader = Gauge(
+            "tpumounter_election_is_leader",
+            "Whether this replica currently leads the shard (1/0); "
+            "max over replicas == 0 means the shard is leaderless")
+        self.election_transitions = Counter(
+            "tpumounter_election_transitions_total",
+            "Shard leadership transitions observed by this replica, by "
+            "shard and outcome (acquired/lost) — a climbing rate is "
+            "leadership flapping")
+        self.election_transitions.inc(0.0, shard="0", outcome="acquired")
+        self.election_transitions.inc(0.0, shard="0", outcome="lost")
+        self.shard_forwards = Counter(
+            "tpumounter_shard_forwards_total",
+            "Requests that landed on a non-owning replica and were "
+            "forwarded to the shard leader, by mode (proxy/redirect) "
+            "and outcome")
+        self.shard_forwards.inc(0.0, mode="proxy", outcome="ok")
+        # Cross-shard capacity nudges (master/store.py): sent = this
+        # replica stamped a peer shard's state ConfigMap after freeing
+        # GPUs; received = a tick observed a moved stamp.
+        self.capacity_pokes = Counter(
+            "tpumounter_capacity_pokes_total",
+            "Cross-shard capacity nudges by direction (sent/received)")
+        self.capacity_pokes.inc(0.0, direction="sent")
+        self.capacity_pokes.inc(0.0, direction="received")
         # The slice subsystem (master/slicetxn.py): every slice
         # transaction's terminal state by outcome, plus gang hand-backs.
         self.slice_txns = Counter(

@@ -11,6 +11,7 @@ restore resumes from the checkpoint. The subprocess e2es are in
 """
 
 import json
+import time
 import urllib.request
 
 import numpy as np
@@ -79,6 +80,13 @@ class _Master:
 
     def post(self, stack, route, body):
         return _post(f"{stack.base}/{route.format(dev=self.dev)}", body)
+
+    def registry(self):
+        if self.name == "jax":
+            from gpumounter_tpu.utils.metrics import REGISTRY
+        else:
+            from gpumounter_tpu_torch.utils.metrics import REGISTRY
+        return REGISTRY
 
     def invariants(self, stack):
         if self.name == "jax":
@@ -152,6 +160,68 @@ def test_teardown_retires_the_barrier(tmp_path, master):
             client.join(1, "127.0.0.1:4000")
         assert client.status() is None
         master.invariants(stack)
+    finally:
+        stack.close()
+
+
+def _barrier_record(master, **fields):
+    if master.name == "jax":
+        from gpumounter_tpu.master.store import SliceBarrierRecord
+    else:
+        from gpumounter_tpu_torch.master.store import SliceBarrierRecord
+    return SliceBarrierRecord(created_unix=time.time(), **fields)
+
+
+def test_barrier_record_rearms_from_the_store(tmp_path, master):
+    """A failed-over leader re-arms persisted barriers with an empty
+    joined set (adopt_barriers), ignores records older than what it
+    already carries, and restores a completed record's plan verbatim."""
+    stack = master.stack(tmp_path, hosts=2)
+    try:
+        _, body = master.post(stack, "add{dev}slice", master.target(2))
+        group = body["group"]
+        manager = stack.gateway.slices
+        members = ["default/workload-0", "default/workload-1"]
+        record = _barrier_record(master, group=group, generation=5,
+                                 members=members)
+        assert manager.adopt_barriers([record]) == 1
+        client = fed.BarrierClient(stack.base, group, "default/workload-0")
+        status = client.status()
+        assert status["generation"] == 5 and status["joined"] == []
+        stale = _barrier_record(master, group=group, generation=2,
+                                members=["default/workload-0"])
+        assert manager.adopt_barriers([stale]) == 0
+        assert client.status()["generation"] == 5
+        assert type(record).from_json(record.to_json()) == record
+        plan = {"coordinator": "127.0.0.1:7777", "num_processes": 2,
+                "members": members}
+        done = _barrier_record(master, group=group, generation=6,
+                               members=members, plan=plan,
+                               completed_unix=time.time())
+        assert manager.adopt_barriers([done]) == 1
+        status = client.status()
+        assert status["complete"] is True
+        assert status["plan"] == plan
+        assert client.wait(6, timeout_s=1.0) == plan
+        master.invariants(stack)
+    finally:
+        stack.close()
+
+
+def test_orphan_adopted_barrier_is_swept(tmp_path, master):
+    """A barrier adopted for a group that no longer exists (torn down
+    before the failover) is retired by the gauge sweep, not left to page
+    the stuck alert forever."""
+    stack = master.stack(tmp_path, hosts=2)
+    try:
+        manager = stack.gateway.slices
+        ghost = _barrier_record(master, group="txn-ghost", generation=4,
+                                members=["default/gone-0", "default/gone-1"])
+        assert manager.adopt_barriers([ghost]) == 1
+        manager.export_gauges()
+        assert fed.BarrierClient(stack.base, "txn-ghost",
+                                 "default/gone-0").status() is None
+        assert master.registry().slice_barriers_incomplete.value() == 0
     finally:
         stack.close()
 

@@ -1,6 +1,6 @@
 """The port's master (master/gateway.py, discovery.py, httpfront.py,
 fleet.py, utils/slo.py) against the control plane's, on the single-master
-path both serve with HA, node health and topology off.
+path both serve with node health and topology off.
 
 - One URL sequence through both packages' ``LiveStack`` (a real gRPC
   worker and a real HTTP master over a WorkerRig): every status code and
@@ -12,8 +12,8 @@ path both serve with HA, node health and topology off.
   cover, each through both packages with the same inputs and the same
   expected answers.
 - The slice routes answer as the control plane's (``/addgpuslice`` for
-  ``/addtpuslice``), and, what only the port has,
-  ``HAConfig(enabled=True)`` raises naming its ROADMAP item.
+  ``/addtpuslice``), and each ``HAConfig`` variant builds the control
+  plane's ``ha``/``masters`` views.
 
 The JAX side runs under ``TPU_NODE_HEALTH=0`` and ``TPU_TOPOLOGY=0``
 (fixture ``planes_off``), the states the port serves in."""
@@ -298,16 +298,40 @@ def test_slice_routes_answer_501_naming_the_roadmap_item(method, path):
     assert out[1][0] != 501
 
 
+def _scrub_ha(obj):
+    """An HA section with what differs by replica or clock taken out (the
+    lock deadline, the pool namespace each package defaults to)."""
+    if isinstance(obj, dict):
+        return {k: ("<ns>" if k == "namespace" else _scrub_ha(v))
+                for k, v in obj.items() if k != "expires_in_s"}
+    return obj
+
+
 @pytest.mark.parametrize("kwargs", [{"shards": 2}, {"election": True},
                                     {"store": True}])
-def test_ha_config_enabled_raises_naming_the_roadmap_item(kwargs):
-    ha = TORCH.mod("master.shardring").HAConfig(replica="r0", **kwargs)
-    assert ha.enabled
-    kube = TORCH.mod("k8s.client").FakeKubeClient()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12b"):
-        TORCH.mod("master.gateway").MasterGateway(
-            kube, TORCH.mod("master.discovery").WorkerDirectory(kube),
-            ha=ha)
+def test_ha_config_enabled_builds_the_control_planes_ha_views(kwargs):
+    """Each HA variant builds a gateway (the port used to refuse them) whose
+    /brokerz ``ha`` and /fleetz ``masters`` sections are the control
+    plane's for the same config."""
+    views = []
+    for p in BOTH:
+        ha = p.mod("master.shardring").HAConfig(replica="r0", **kwargs)
+        assert ha.enabled
+        kube = p.mod("k8s.client").FakeKubeClient()
+        gw = p.mod("master.gateway").MasterGateway(
+            kube, p.mod("master.discovery").WorkerDirectory(kube), ha=ha)
+        status, brokerz = gw.handle("GET", "/brokerz")
+        assert status == 200
+        status, fleetz = gw.handle("GET", "/fleetz")
+        assert status == 200
+        views.append((_scrub_ha(brokerz["ha"]), _scrub_ha(fleetz["masters"])))
+        gw.broker.stop()
+    assert views[0] == views[1]
+    brokerz_ha, masters = views[1]
+    assert brokerz_ha["enabled"] is True
+    assert masters["replica"] == "r0"
+    assert masters["enabled"] is bool(kwargs.get("election")
+                                      or kwargs.get("store"))
 
 
 def test_ha_config_defaults_agree():

@@ -4,7 +4,9 @@ apiserver facade (through its kubeconfig client), in front of a live
 in-process gRPC worker over a WorkerRig. It must answer ``/healthz``,
 attach and detach over the reference's HTTP routes, log ONE WARNING
 naming the planes the environment asks for that are not ported yet, and
-stop on SIGINT. The mirror of tests/test_boot.py's master half."""
+stop on SIGINT; with the HA plane asked for, it leads its shards and
+writes its leases through the intent store. The mirror of
+tests/test_boot.py's master half."""
 
 import json
 import os
@@ -45,8 +47,9 @@ def _call(url, data=None):
         return e.code, json.loads(e.read())
 
 
-@pytest.fixture
-def master(tmp_path):
+def _boot(tmp_path, extra_env=None):
+    """The master as a subprocess against the facade, in front of a live
+    worker; returns (proc, base, rig, closer)."""
     root = str(tmp_path)
     host = HostPaths(dev_root=f"{root}/dev", proc_root=f"{root}/proc",
                      sys_root=f"{root}/sys",
@@ -69,18 +72,28 @@ def master(tmp_path):
                                                api.base),
                 "PYTHONPATH": REPO, "TPU_MASTER_HTTP_PORT": str(port),
                 "TPU_FLEET_INTERVAL_S": "3600"})
+    env.update(extra_env or {})
     proc = subprocess.Popen(
         [sys.executable, "-m", "gpumounter_tpu_torch.master.main"],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
-    yield proc, f"http://127.0.0.1:{port}", rig
-    if proc.poll() is None:
-        proc.kill()
-    proc.wait(timeout=30)
-    proc.stdout.close()
-    api.close()
-    server.stop(grace=0)
-    rig.close()
+
+    def close():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+        api.close()
+        server.stop(grace=0)
+        rig.close()
+    return proc, f"http://127.0.0.1:{port}", rig, close
+
+
+@pytest.fixture
+def master(tmp_path):
+    proc, base, rig, close = _boot(tmp_path)
+    yield proc, base, rig
+    close()
 
 
 def _wait_ready(base, proc, timeout_s=30.0):
@@ -126,9 +139,9 @@ def test_master_boots_attaches_detaches_and_stops(master):
 @pytest.mark.parametrize("env,expect", [
     ({"TPU_NODE_HEALTH": "0", "TPU_TOPOLOGY": "0"}, []),
     ({"TPU_NODE_HEALTH": "0", "TPU_TOPOLOGY": "0",
-      "TPU_MASTER_SHARDS": "2"}, ["12b"]),
+      "TPU_MASTER_SHARDS": "2"}, []),
     ({"TPU_NODE_HEALTH": "0", "TPU_TOPOLOGY": "0", "TPU_ELECTION": "1"},
-     ["12b"]),
+     []),
     ({"TPU_TOPOLOGY": "0"}, ["12c"]),
     ({"TPU_NODE_HEALTH": "0"}, ["12d"]),
     ({}, ["12c", "12d"]),
@@ -136,3 +149,59 @@ def test_master_boots_attaches_detaches_and_stops(master):
 def test_unported_planes_are_named(env, expect):
     asked = unported_planes(Settings.from_env(env), env)
     assert [a.rsplit("item ", 1)[1].rstrip(")") for a in asked] == expect
+
+
+def test_master_boots_with_the_ha_plane(tmp_path):
+    """``TPU_MASTER_SHARDS=2 TPU_ELECTION=1 TPU_INTENT_STORE=1``: the
+    entry point builds ``HAConfig.from_settings``; the replica leads both
+    shards, its attach lands a lease record in the shard's state
+    ConfigMap, and no plane is reported missing."""
+    from gpumounter_tpu_torch.master.shardring import ShardRing
+    from gpumounter_tpu_torch.utils import consts
+    from gpumounter_tpu_torch.utils.errors import K8sApiError
+    proc, base, rig, close = _boot(tmp_path, {
+        "TPU_NODE_HEALTH": "0", "TPU_TOPOLOGY": "0",
+        "TPU_MASTER_SHARDS": "2", "TPU_ELECTION": "1",
+        "TPU_INTENT_STORE": "1", "TPU_ELECTION_RENEW_S": "0.2",
+        "TPU_ELECTION_TTL_S": "0.6", "TPU_REPLICA_ID": "m-boot"})
+    try:
+        _wait_ready(base, proc)
+        deadline = time.monotonic() + 15
+        while True:
+            masters = _call(base + "/fleetz")[1]["masters"]
+            shards = masters["election"]["shards"]
+            if all(v["leader"] for v in shards.values()):
+                break
+            assert time.monotonic() < deadline, masters
+            time.sleep(0.1)
+        assert masters["replica"] == "m-boot" and len(shards) == 2
+        status, body = _call(base + "/addgpu/namespace/default/pod/workload"
+                                    "/gpu/2/isEntireMount/true")
+        assert status == 200 and body["result"] == "SUCCESS", body
+        assert _call(base + "/brokerz")[1]["ha"]["shards"] == 2
+        name = (consts.STORE_CONFIGMAP_PREFIX
+                + str(ShardRing(2).shard_of("default")))
+
+        def lease_records():
+            # group commit (on by default) lands the write within 10 ms
+            try:
+                cm = rig.sim.kube.get_config_map(Settings().pool_namespace,
+                                                 name)
+            except K8sApiError:       # not written yet
+                return []
+            return [k for k in cm["metadata"].get("annotations") or {}
+                    if k.startswith(consts.STORE_LEASE_ANNOTATION_PREFIX)]
+        deadline = time.monotonic() + 10
+        while not lease_records():
+            assert time.monotonic() < deadline, "no lease record"
+            time.sleep(0.05)
+        status, body = _call(base + "/removegpu/namespace/default/pod/"
+                                    "workload/force/false", b"")
+        assert status == 200 and body["result"] == "SUCCESS"
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=30) == 0
+        log = proc.stdout.read()
+        assert "not ported yet" not in log
+        assert "shards=2 election=on store=on replica=m-boot" in log
+    finally:
+        close()

@@ -6,8 +6,8 @@ process ids, coordinator = member 0's address); stale and future
 generations and non-members refused; an incomplete barrier superseded by
 the next generation; the stuck flag in /slicez; lazy re-arm after state
 loss; teardown retiring it. The cases that re-arm from the intent store
-(``adopt_barriers``) wait for the HA plane (ROADMAP Queue 1 item 12b);
-the doctor and ``slice status`` CLI halves wait for the CLI (item 13)."""
+(``adopt_barriers``) are in tests/test_torch_federation.py; the doctor
+and ``slice status`` CLI halves wait for the CLI (item 13)."""
 
 import time
 

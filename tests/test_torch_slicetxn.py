@@ -1,10 +1,9 @@
 """The port's slice transactions, gang admission, slice-group leases and
-live resize (master/slicetxn.py): the stack cases of
-tests/test_slicetxn.py against the port's ``MultiNodeStack`` (GKE GPU
-nodes). The cases that need the intent store or an election — the record
-round trips through ``IntentStore`` and the cross-shard capacity poke —
-wait for the HA plane (ROADMAP Queue 1 item 12b). Every test ends on the
-port's ``assert_slice_invariants``."""
+live resize (master/slicetxn.py): the cases of tests/test_slicetxn.py
+against the port's ``MultiNodeStack`` (GKE GPU nodes), the slice txn
+record's round trip through ``IntentStore`` (and its torn form), and the
+cross-shard capacity poke. Every stack test ends on the port's
+``assert_slice_invariants``."""
 
 import threading
 import time
@@ -12,12 +11,60 @@ import urllib.request
 
 import pytest
 
-from gpumounter_tpu_torch.master.admission import BrokerConfig
+from gpumounter_tpu_torch.k8s.client import FakeKubeClient
+from gpumounter_tpu_torch.master.admission import AttachBroker, BrokerConfig
+from gpumounter_tpu_torch.master.election import NullElection
+from gpumounter_tpu_torch.master.shardring import ShardRing
+from gpumounter_tpu_torch.master.store import (IntentStore, LeaseRecord,
+                                               SliceTxnRecord)
 from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
 from tests.torch_slices import (block_node, get, invariants, post,
                                 slice_body, stack)
 
+
+NS = consts.DEFAULT_POOL_NAMESPACE
+
+
+# -- SliceTxnRecord round trips ------------------------------------------------
+
+def txn_record(**over):
+    fields = dict(txn_id="txn-abc123", rid="rid-9", tenant="teamA",
+                  priority="high", pods=["default/w-0", "default/w-1"],
+                  gpus_per_host=4, committed=["default/w-0"],
+                  created_unix=1000.0, deadline_unix=1030.0,
+                  group="txn-original")
+    fields.update(over)
+    return SliceTxnRecord(**fields)
+
+
+def test_slice_txn_record_survives_cas_write_byte_identically():
+    store = IntentStore(FakeKubeClient(), ShardRing(1), NS)
+    record = txn_record()
+    assert store.put_slice_txn(record)
+    records, torn = store.rehydrate_slice_txns(0)
+    assert torn == 0
+    assert [r.to_json() for r in records] == [record.to_json()]
+    assert records[0].members() == [("default", "w-0"), ("default", "w-1")]
+    # the lease/waiter rehydrate must NOT pick slice records up
+    assert store.rehydrate(0) == ([], [], 0)
+    assert store.delete_slice_txn("default", record.txn_id)
+    assert store.rehydrate_slice_txns(0) == ([], 0)
+
+
+def test_torn_slice_txn_record_is_counted_and_dropped():
+    kube = FakeKubeClient()
+    store = IntentStore(kube, ShardRing(1), NS)
+    store.put_slice_txn(txn_record())
+    kube.patch_config_map(NS, store.cm_name(0), {"metadata": {
+        "annotations": {consts.STORE_SLICE_ANNOTATION_PREFIX + "deadbeef":
+                        '{"txn_id": "half-writ'}}})
+    records, torn = store.rehydrate_slice_txns(0)
+    assert torn == 1
+    assert [r.txn_id for r in records] == ["txn-abc123"]
+
+
+# -- group leases over a live multi-node stack ---------------------------------
 
 @pytest.fixture
 def stack2(tmp_path):
@@ -350,5 +397,114 @@ def test_defaults_off_slice_semantics(tmp_path):
         for rig in s.rigs:
             assert rig.sim.kube.cm_calls == 0
         invariants(s)
+    finally:
+        s.close()
+
+
+# -- cross-shard capacity poke -------------------------------------------------
+
+class _TwoShardElection(NullElection):
+    """Election double: enabled, owns only ``mine``."""
+
+    enabled = True
+
+    def __init__(self, shards, mine):
+        super().__init__(shards)
+        self.mine = mine
+
+    def is_leader(self, shard):
+        return shard == self.mine
+
+    def token(self, shard):
+        return 7 if shard == self.mine else None
+
+    def owned(self):
+        return [self.mine]
+
+
+def test_release_pokes_peer_shards_and_tick_receives():
+    """A detach on shard A's leader stamps peer shards' state ConfigMaps;
+    a peer leader's tick observes the moved stamp and opens a retry
+    generation for its parked waiters."""
+    kube = FakeKubeClient()
+    ring = ShardRing(2)
+    election_a = _TwoShardElection(2, 0)
+    election_b = _TwoShardElection(2, 1)
+    store_a = IntentStore(kube, ring, NS, election=election_a)
+    store_b = IntentStore(kube, ring, NS, election=election_b)
+    broker_a = AttachBroker(kube, BrokerConfig())
+    broker_a.bind_ha(store_a, ring, election_a)
+    broker_b = AttachBroker(kube, BrokerConfig())
+    broker_b.bind_ha(store_b, ring, election_b)
+    ns_b = next(ns for ns in ("default", "team-b", "blue", "green")
+                if ring.shard_of(ns) == 1)
+    store_b.put_lease(LeaseRecord(namespace=ns_b, pod="seed", tenant=ns_b,
+                                  chips=1))
+    assert store_b.check_poke(1) is False      # baseline
+    sent = REGISTRY.capacity_pokes.value(direction="sent")
+    # A frees GPUs: release() marks the nudge, A's next tick stamps it
+    broker_a.release("whatever", "pod")
+    assert broker_a._poke_pending is True
+    broker_a.tick()
+    assert broker_a._poke_pending is False
+    assert REGISTRY.capacity_pokes.value(direction="sent") - sent == 1
+    assert store_a.poke_peers({0}) == 0        # rate-limited re-poke
+    assert store_b.check_poke(1) is True
+    assert store_b.check_poke(1) is False
+    gen_before = broker_b._gen
+    broker_b.signal_capacity()
+    assert broker_b._gen == gen_before + 1
+
+
+# -- failover adoption of stranded slice transactions ---------------------------
+
+def _bind_store(s):
+    store = IntentStore(s.master_kube, ShardRing(1), NS)
+    s.gateway.broker.bind_ha(store, store.ring, NullElection(1))
+    return store
+
+
+def _wait(pred, timeout_s=10.0):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.02)
+
+
+@pytest.mark.parametrize("remaining_s", [30.0, -1.0],
+                         ids=["completes", "rolls-back"])
+def test_stranded_txn_record_is_adopted(tmp_path, remaining_s):
+    """A txn record a dead leader left behind (one host already
+    committed) is completed under its original rid while its deadline
+    holds, and rolled back on every member once it has passed; either
+    way the record is resolved and no half-attached slice remains."""
+    s = stack(tmp_path, hosts=2, n_chips=4)
+    try:
+        store = _bind_store(s)
+        manager = s.gateway.slices
+        record = txn_record(pods=["default/workload-0",
+                                  "default/workload-1"],
+                            committed=[], group="",
+                            created_unix=round(time.time(), 3),
+                            deadline_unix=round(time.time()
+                                                + remaining_s, 3))
+        store.put_slice_txn(record)
+        outcome = "adopted_commit" if remaining_s > 0 else "adopted_abort"
+        before = REGISTRY.slice_txns.value(outcome=outcome)
+        manager.tick()
+        _wait(lambda: not store.rehydrate_slice_txns(0)[0]
+              and not manager._adopting)
+        assert REGISTRY.slice_txns.value(outcome=outcome) - before == 1
+        groups = s.gateway.broker.leases.groups()
+        if remaining_s > 0:
+            assert sorted(le.pod for le in groups[record.txn_id]) == \
+                ["workload-0", "workload-1"]
+        else:
+            assert groups == {}
+        s.gateway.broker.tick()
+        from gpumounter_tpu_torch.testing.chaos import \
+            assert_slice_invariants
+        assert_slice_invariants(s.gateway.broker, [r.sim for r in s.rigs],
+                                kube=s.master_kube, store=store)
     finally:
         s.close()

@@ -21,8 +21,9 @@ MODULES = ("actuation.agent", "actuation.cgroup", "actuation.gate",
            "actuation.nsenter", "allocator", "allocator.allocator",
            "allocator.topology", "device.fake", "k8s.client", "k8s.informer",
            "k8s.objects", "testing.chaos", "testing.http_apiserver",
-           "master.admission", "master.discovery", "master.fleet",
-           "master.slice", "master.slicetxn",
+           "master.admission", "master.discovery", "master.election",
+           "master.fleet", "master.slice", "master.slicetxn",
+           "master.store",
            "master.gateway", "master.httpfront", "master.lease",
            "master.shardring", "master.waiterindex", "testing.sim",
            "utils.config", "utils.consts", "utils.errors", "utils.events",
