@@ -136,7 +136,26 @@ Phases, each printing one JSON line on stdout:
      requests per pair; ``/fleetz`` ``masters`` and ``shard_forwards``;
      the broker invariants with the store, fallbacks 0, the phase under
      60 s;
- 15. the kernels line (each entry names the device function and the line
+ 15. node_failure — a member host of a live slice dies
+     (``gpumounter_tpu_torch/testing/node_failure.py``): the four hosts of
+     phase 13 behind one master with node health on (a fleet interval of
+     1 s, suspect after 2 missed scrapes, dead after 5), every worker with
+     its health sidecar, host 0 on this machine's card holding a pod
+     labelled ``tpumounter.io/slice-spare=true``; ``/addgpuslice`` over
+     hosts 1-3 and the generation-1 barrier; host 2 killed (Node
+     ``Ready=False``, gRPC and sidecar stopped), timed to suspect and to
+     dead, a plain ``/addgpu`` there answered 503 ``NodeCordoned``; its
+     lease fenced (slave pod deleted, ``tpumounter_lease_fences_total``
+     moved), timed from dead; the group repaired onto the spare at
+     generation 2 (``/slicez``, the barrier, ``MasterSliceSignal``, the
+     annotations), timed from dead, with the facade requests of the repair;
+     the repaired member's in-pod ``flash_fwd`` on the card's nvidia-smi
+     UUID (its launch reported here, not in the kernels line); a drain on
+     host 3 cordoned within one fleet tick, its migration deferred without
+     a teardown; host 2 restarted with no grant resurrected and healthy
+     only after 2 clean scrapes; the node-death, slice and broker
+     invariants, fallbacks 0, the phase under 60 s;
+ 16. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -1584,6 +1603,29 @@ def ha_attach(card: str) -> dict:
             "ok": all(checks.values())}
 
 
+NODE_FAILURE_DIR = os.path.join(REPO, "build", "node_failure")
+
+
+def node_failure(card: str) -> dict:
+    """A member host of a live slice dies and the slice is repaired onto a
+    spare pod on this machine's card, with the in-pod proof there
+    (``testing/node_failure.py``). The card's UUID must be one nvidia-smi
+    names."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.master_attach import cuda_proof
+    from gpumounter_tpu_torch.testing.node_failure import run_node_failure
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_node_failure(NODE_FAILURE_DIR, PyEnumerator(HostPaths()),
+                              cuda_proof)
+    checks = report["checks"]
+    checks["card_is_an_nvidia_smi_uuid"] = (
+        report.get("card", {}).get("uuid") in smi_uuids)
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1791,6 +1833,7 @@ def main() -> int:
     phase("master_attach", lambda: master_attach(card))
     phase("slice_attach", lambda: slice_attach(card))
     phase("ha_attach", lambda: ha_attach(card))
+    phase("node_failure", lambda: node_failure(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

@@ -52,12 +52,20 @@ families: ``admission_decisions_total{tenant,outcome}``,
 
 This is the port of :mod:`gpumounter_tpu.master.admission`, with the
 planes the port does not run yet in the off state the control plane
-defines for them: no node-health fencing (``TPU_NODE_HEALTH=0``) and no
-defragmenter (ROADMAP Queue 1 items 12c and 12d).
+defines for them: no defragmenter (ROADMAP Queue 1 item 12d).
+
+6. **Node failure domain** — with the master's node-health tracker bound
+   (``bind_node_health``) a lease whose node is judged dead is fenced
+   (``fence_lease``: its slave pods are deleted cluster-side, no worker
+   detach), slice groups with members there go to self-healing
+   (``request_repair``), the tick re-notifies dead nodes that still
+   anchor leases, and the reaper fences an expired lease on a dead node
+   instead of retrying its worker forever.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
@@ -103,6 +111,9 @@ class BrokerConfig:
     # (bind_utilization + TPU_USAGE on), so the default is inert
     # without the sampler.
     idle_lease_s: float = consts.DEFAULT_IDLE_LEASE_S
+    # Slice self-healing budget (master/slicetxn.py repair_group):
+    # repair txns one group may consume before teardown-as-a-unit.
+    slice_repair_budget: int = consts.DEFAULT_SLICE_REPAIR_BUDGET
     # Re-federation barrier (master/slicetxn.py): a barrier incomplete
     # past this window is STUCK — surfaced in /slicez with the missing
     # member names.
@@ -126,6 +137,7 @@ class BrokerConfig:
                    queue_depth=settings.queue_depth,
                    gang_hold_s=settings.gang_hold_s,
                    idle_lease_s=settings.idle_lease_s,
+                   slice_repair_budget=settings.slice_repair_budget,
                    resize_barrier_timeout_s=(
                        settings.resize_barrier_timeout_s),
                    waiter_index=settings.waiter_index,
@@ -245,6 +257,38 @@ class AttachBroker:
         # moves in the control plane; the port has none (ROADMAP Queue 1
         # item 12d), so the rehydration's defrag branch stays unreached.
         self._defrag = None
+        # Node failure domain (master/nodehealth.py, bind_node_health):
+        # node -> state ("healthy"/"draining"/"suspect"/"dead"). None =
+        # subsystem off — no fencing.
+        self._node_health_fn = None
+        # Override seam for fence-time cluster cleanup (delete the
+        # fenced owner's slave pods). Default = this broker's kube;
+        # split-view test stacks (MultiNodeStack) bind the per-node fake
+        # clusters here so fencing reaches the "one apiserver" the
+        # production deployment has.
+        self.fence_cleanup = None
+        # Recent fences for /brokerz and the chaos invariants (bounded;
+        # key present in snapshots only when non-empty, so the idle
+        # subsystem's payload is the one without it).
+        self._fenced: collections.deque = collections.deque(maxlen=64)
+        # nodes with a re-notify handler currently in flight (the tick
+        # must neither stall on apiserver fencing nor stack threads)
+        self._renotify_inflight: set[str] = set()
+
+    def bind_node_health(self, state_fn) -> None:
+        """``state_fn(node) -> "healthy"|"draining"|"suspect"|"dead"``
+        (NodeHealthTracker.state): lets the reaper fence leases whose
+        worker is judged dead instead of retrying it forever."""
+        self._node_health_fn = state_fn
+
+    def node_state(self, node: str) -> str:
+        if self._node_health_fn is None or not node:
+            return "healthy"
+        try:
+            return self._node_health_fn(node)
+        except Exception:    # noqa: BLE001 — health telemetry must not
+            logger.exception("node health lookup failed")  # break reaping
+            return "healthy"
 
     def bind(self, detach_fn) -> None:
         """``detach_fn(lease, cause, force) -> result name`` — the
@@ -1105,6 +1149,143 @@ class AttachBroker:
             chips=released)
         self.poke_peers()
 
+    # -- node failure domain: lease fencing (master/nodehealth.py) -------------
+
+    def fence_lease(self, lease: Lease, reason: str) -> bool:
+        """THE one-way eviction seam for health-driven lease removal
+        (tests/test_torch_nodehealth_lint.py pins that no health code
+        evicts the lease table any other way). Unlike a detach, fencing
+        never dials the worker — it is unreachable; that is the point.
+        Instead the grant is revoked CLUSTER-side: the owner's slave pods
+        are deleted through the apiserver (ground truth then says "no
+        grant"), the lease is dropped (quota frees, capacity signals
+        fire), and the fence is evented + counted. A zombie worker
+        rejoining replays its journal and converges its device gate
+        against that ground truth — the fenced grant cannot resurrect."""
+        current = self.leases.get(lease.namespace, lease.pod)
+        if current is not lease:
+            return False        # released/renewed since the caller saw it
+        self._fence_cleanup(lease.namespace, lease.pod)
+        # compare-and-pop: the cleanup above is seconds of apiserver
+        # work under retries — a lease RE-GRANTED in that window is a
+        # live attachment and must not be evicted by this stale fence
+        dropped = self.leases.drop(lease.namespace, lease.pod,
+                                   expected=lease)
+        if dropped is None:
+            return False
+        REGISTRY.lease_fences.inc(reason=reason)
+        EVENTS.emit("lease_fenced", rid=lease.rid, tenant=lease.tenant,
+                    namespace=lease.namespace, pod=lease.pod,
+                    chips=lease.chips, node=lease.node, reason=reason,
+                    group=lease.group)
+        self._fenced.append({
+            "namespace": lease.namespace, "pod": lease.pod,
+            "tenant": lease.tenant, "chips": lease.chips,
+            "node": lease.node, "reason": reason, "group": lease.group,
+            "ts": round(time.time(), 3)})
+        logger.warning("lease %s/%s FENCED (%s): %d GPU(s) on node %s "
+                       "reclaimed without a worker detach",
+                       lease.namespace, lease.pod, reason, lease.chips,
+                       lease.node or "?")
+        self.signal_capacity(node=lease.node, chips=lease.chips)
+        self.poke_peers()
+        return True
+
+    def _fence_cleanup(self, namespace: str, pod: str) -> None:
+        """Delete the fenced owner's slave pods cluster-side (the
+        apiserver outlives the node): releases the scheduler
+        reservations and makes ground truth agree with the fence. Best
+        effort — a flaky apiserver defers to the reconciler/next
+        re-derivation, both of which run against the same truth."""
+        if self.fence_cleanup is not None:
+            try:
+                self.fence_cleanup(namespace, pod)
+            except Exception:    # noqa: BLE001 — cleanup is best-effort
+                logger.exception("bound fence cleanup for %s/%s failed",
+                                 namespace, pod)
+            return
+        selector = (f"{consts.OWNER_POD_LABEL_KEY}={pod},"
+                    f"{consts.OWNER_NAMESPACE_LABEL_KEY}={namespace}")
+        try:
+            slaves = self.kube.list_pods(self.config.pool_namespace,
+                                         label_selector=selector)
+            for slave in slaves:
+                self.kube.delete_pod(self.config.pool_namespace,
+                                     objects.name(slave))
+        except K8sApiError as e:
+            logger.warning("fence cleanup for %s/%s deferred "
+                           "(apiserver: %s) — the reconciler finishes "
+                           "it", namespace, pod, e)
+
+    def handle_node_down(self, node: str, dead: bool = True,
+                         reason: str = "node-dead") -> None:
+        """A node left service (nodehealth ``on_dead``/``on_drain``):
+        single leases on it are fenced (dead only — a draining node
+        detaches its own leases through the normal path), slice groups
+        with members there go to self-healing (repair onto a spare
+        host, or teardown-as-a-unit) whether dead or draining — the
+        gang must re-form either way."""
+        groups_hit: dict[str, list[Lease]] = {}
+        for lease in self.leases.leases():
+            if not self._owns(lease.namespace):
+                continue
+            if not lease.node:
+                self._resolve_lease_node(lease)
+            if lease.node != node:
+                continue
+            if lease.group:
+                groups_hit.setdefault(lease.group, []).append(lease)
+            elif dead:
+                self.fence_lease(lease, reason=reason)
+        for group, members in sorted(groups_hit.items()):
+            pods = [(m.namespace, m.pod) for m in members]
+            if self._slice is not None:
+                self._slice.request_repair(group, pods, dead=dead,
+                                           reason=reason)
+            elif dead:
+                # no slice subsystem bound (bare-broker rigs): fence the
+                # members — stranding them would be worse than a broken
+                # group, and the group dies with its node either way
+                for member in members:
+                    self.fence_lease(member, reason=reason)
+
+    def fenced(self) -> list[dict]:
+        """Recent fences, oldest first (bounded)."""
+        return list(self._fenced)
+
+    def _renotify_dead_nodes(self) -> None:
+        """Tick-driven convergence for the node failure domain: any
+        node judged dead that still anchors leases gets its node-down
+        handling re-run (the on_dead callback fires once per death; a
+        repair thread that died on a transient error would otherwise
+        strand the group in the dead-with-leases state, with nothing
+        left to retry it)."""
+        if self._node_health_fn is None:
+            return
+        nodes = {lease.node for lease in self.leases.leases()
+                 if lease.node}
+        for node in sorted(nodes):
+            if self.node_state(node) != "dead":
+                continue
+            with self._lock:
+                if node in self._renotify_inflight:
+                    continue        # previous handler still working
+                self._renotify_inflight.add(node)
+
+            def _run(node=node):
+                try:
+                    self.handle_node_down(node, dead=True,
+                                          reason="node-dead")
+                finally:
+                    with self._lock:
+                        self._renotify_inflight.discard(node)
+
+            # its OWN thread: fencing is apiserver LIST+DELETE work
+            # under retry deadlines — the 1s maintenance tick (expiry,
+            # queue promotion, idle marking) must not stall on it
+            threading.Thread(target=_run, daemon=True,
+                             name=f"tpumounter-renotify-{node}").start()
+
     # -- expiry loop -----------------------------------------------------------
 
     def start(self) -> "AttachBroker":
@@ -1202,6 +1383,12 @@ class AttachBroker:
         # usage.py → fleet scrapes → here): leases whose chips showed
         # zero duty past the threshold become reclaim candidates
         self._mark_idle_leases()
+        # dead-node re-notify: a fence or slice repair that failed on a
+        # transient error (and any lease recorded after the death) must
+        # not strand until the node recovers — every downstream path is
+        # idempotent (fence currency-checks, repair guards in-flight +
+        # budget), so re-running node-down handling per tick converges
+        self._renotify_dead_nodes()
         with self._lock:
             self._refresh_queue_gauges_locked()
         self.leases.export_gauges()
@@ -1324,6 +1511,15 @@ class AttachBroker:
         # busy devices / transport trouble: back off linearly, keep the
         # lease visible in /brokerz as stuck rather than silently immortal
         lease.reap_failures += 1
+        if not lease.node:
+            self._resolve_lease_node(lease)
+        if lease.reap_failures >= consts.REAP_FENCE_AFTER \
+                and self.node_state(lease.node) == "dead":
+            # the worker is judged DEAD: "busy devices defer with
+            # backoff" would retry it forever while the expired lease
+            # holds tenant quota — fence instead (one-way eviction; the
+            # zombie-rejoin convergence reclaims the node side)
+            return self.fence_lease(lease, reason="reap-unreachable")
         lease.expires_at = time.monotonic() + min(
             30.0, 2.0 * lease.reap_failures)
         logger.warning("lease-expiry detach of %s/%s deferred (%s), "
@@ -1422,10 +1618,15 @@ class AttachBroker:
                 "store": (self.store.snapshot()
                           if self.store is not None else None),
             }
+        fenced = self.fenced()
         return {
             "enabled": bool(self.config.quotas
                             or self.config.lease_ttl_s > 0
                             or self.config.queue_timeout_s > 0),
+            # key present only once a fence actually happened — with the
+            # node-failure subsystem idle (or off) the payload has no
+            # such key
+            **({"fenced": fenced} if fenced else {}),
             "ha": ha,
             "config": {
                 "quotas": dict(self.config.quotas),

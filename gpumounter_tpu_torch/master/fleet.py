@@ -1,8 +1,7 @@
 """Master-side fleet aggregator: one cluster view over every worker (the
-port of :mod:`gpumounter_tpu.master.fleet`, without the topology,
-defragmenter and node-health hooks: those planes are not ported yet, and
-the view is the control plane's with ``TPU_TOPOLOGY=0`` and
-``TPU_NODE_HEALTH=0``).
+port of :mod:`gpumounter_tpu.master.fleet`, with the node-health feed and
+without the topology and defragmenter hooks: those planes are not ported
+yet, and the view is the control plane's with ``TPU_TOPOLOGY=0``).
 
 The paper's master/worker split leaves the only ground truth about
 actuation in per-node processes: the workers' ``/tracez``/``/agentz``/
@@ -134,7 +133,7 @@ class FleetAggregator:
     def __init__(self, targets_fn, usage_fn=None, slo=None,
                  tick_interval_s: float = DEFAULT_TICK_INTERVAL_S,
                  scrape_timeout_s: float = SCRAPE_TIMEOUT_S,
-                 ha_fn=None, lease_lookup=None):
+                 ha_fn=None, lease_lookup=None, node_health=None):
         self.targets_fn = targets_fn
         self.usage_fn = usage_fn or (lambda: {})
         self.slo = slo
@@ -146,6 +145,12 @@ class FleetAggregator:
         # peers from the election lock records, store lag) — the /fleetz
         # section that makes a stuck failover visible in one command.
         self.ha_fn = ha_fn
+        # Node failure domain (master/nodehealth.py): when bound, every
+        # tick's per-node scrape outcome (fresh/missed + the healthz
+        # text, which a draining worker changes) feeds the tracker's
+        # healthy → suspect → dead state machine. None = subsystem off —
+        # /fleetz has no node_health section.
+        self.node_health = node_health
         self.tick_interval_s = tick_interval_s
         self.scrape_timeout_s = scrape_timeout_s
         # wall budget for ONE node's whole scrape (several sequential
@@ -274,6 +279,17 @@ class FleetAggregator:
         with self._lock:
             self._ticks += 1
             states = {r.node: r.state for r in self._nodes.values()}
+            health_feed = {
+                r.node: {"fresh": r.state == "fresh",
+                         "missed_ticks": r.missed_ticks,
+                         "healthz": r.healthz}
+                for r in self._nodes.values()
+                if r.state != "unscraped" or r.last_ok_unix is not None}
+        if self.node_health is not None and not self._stop.is_set():
+            # after the join barrier, before the gauge exports: the
+            # tracker's dead/drain callbacks (fencing, slice repair)
+            # run on this tick thread and hand real work to threads
+            self.node_health.ingest(health_feed)
         fresh = sum(1 for s in states.values() if s == "fresh")
         # stop-guarded like the SLO tick below: a tick outliving stop()
         # (wedged scrape past stop's join timeout) must not re-export
@@ -591,6 +607,9 @@ class FleetAggregator:
                 r.utilz is not None for r in self._nodes.values())
         if has_util:
             out["utilization"] = self._utilization_view()
+        if self.node_health is not None:
+            # absent entirely under TPU_NODE_HEALTH=0
+            out["node_health"] = self.node_health.snapshot()
         if self.slo is not None:
             out["slo"] = self.slo.snapshot()
         if self.ha_fn is not None:

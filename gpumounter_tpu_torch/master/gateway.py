@@ -32,10 +32,17 @@ and ``GET /slicez``.
 With the HA plane on (``HAConfig``: shards, election, intent store) each
 replica admits only the shards it leads; a request for a foreign shard is
 proxied to the leader (or redirected with 307 + ``Location``, or shed with
-503 + ``Retry-After`` while the shard is leaderless). The planes the port
-does not run yet are in the off state the control plane defines for them:
-no node health (as ``TPU_NODE_HEALTH=0``), and no topology plane or
-defragmenter (as ``TPU_TOPOLOGY=0``: ``/topoz`` is no route).
+503 + ``Retry-After`` while the shard is leaderless).
+
+With node health on (the default; ``TPU_NODE_HEALTH=0`` removes it) the
+fleet tick feeds a ``NodeHealthTracker`` (master/nodehealth.py): a
+suspect, draining or dead node answers ``/addgpu`` with 503
+``NodeCordoned``, a dead node's leases are fenced and its slice groups
+repaired onto spare pods, and a draining node's slice members migrate.
+
+The topology plane and the defragmenter are not ported yet; they are in
+the off state the control plane defines (as ``TPU_TOPOLOGY=0``:
+``/topoz`` is no route).
 """
 
 from __future__ import annotations
@@ -223,6 +230,34 @@ class MasterGateway:
         # engine. serve() starts the loop; unit tests drive tick().
         from gpumounter_tpu_torch.utils.slo import SloEngine
         self.slo = SloEngine()
+        # Node failure domain (master/nodehealth.py): per-node
+        # healthy → suspect → dead from fleet scrape staleness + k8s
+        # Node conditions/taints. suspect/draining cordon the node from
+        # NEW grants; dead fences its leases (one-way eviction through
+        # broker.fence_lease) and triggers slice self-healing.
+        # TPU_NODE_HEALTH=0 removes the tracker entirely — no /fleetz
+        # section, no series, no fencing. (The topology plane's
+        # node_excluded_fn binds the tracker's cordon once it lands.)
+        from gpumounter_tpu_torch.master import nodehealth
+        self.nodehealth = None
+        if nodehealth.enabled():
+            def _env_int(name, default):
+                try:
+                    return int(os.environ.get(name, default))
+                except ValueError:
+                    return default
+            self.nodehealth = nodehealth.NodeHealthTracker(
+                kube,
+                on_dead=self._on_node_dead,
+                on_drain=self._on_node_drain,
+                suspect_after_ticks=_env_int(
+                    consts.ENV_NODE_SUSPECT_TICKS,
+                    consts.DEFAULT_NODE_SUSPECT_TICKS),
+                dead_after_ticks=_env_int(
+                    consts.ENV_NODE_DEAD_TICKS,
+                    consts.DEFAULT_NODE_DEAD_TICKS))
+            self.broker.bind_node_health(self.nodehealth.state)
+            self.slices.bind_repair_candidates(self._repair_candidates)
         try:
             fleet_interval = float(os.environ.get(
                 consts.ENV_FLEET_INTERVAL_S, "5"))
@@ -243,7 +278,8 @@ class MasterGateway:
             ha_fn=self._ha_view,
             # joins scraped chip utilization to the tenant holding the
             # grant (/fleetz per-tenant utilization + idle-lease list)
-            lease_lookup=self.broker.leases.get)
+            lease_lookup=self.broker.leases.get,
+            node_health=self.nodehealth)
         # ...and the reverse direction: the broker tick reads the
         # fleet's observed per-lease activity to mark leases idle past
         # TPU_IDLE_LEASE_S (reclaim signal + preemption preference).
@@ -278,6 +314,66 @@ class MasterGateway:
                                             base_delay_s=0.05,
                                             max_delay_s=1.0,
                                             deadline_s=60.0)
+
+    # -- node failure domain callbacks (master/nodehealth.py) ------------------
+
+    def _on_node_dead(self, node: str) -> None:
+        """Fleet-tick callback: the tracker judged ``node`` dead. Its
+        single leases are fenced (one-way, through the broker's seam),
+        its slice groups self-heal, and the worker directory arms its
+        negative cache so dead-node dials stop costing a timeout each.
+        The fencing itself (apiserver LIST+DELETE per lease) runs on
+        its OWN thread — a populous node dying against a degraded
+        apiserver must not freeze the fleet scrape loop; the broker
+        tick re-notifies dead nodes, so a thread dying mid-way
+        converges."""
+        logger.warning("node %s judged DEAD: fencing its leases, "
+                       "repairing its slices", node)
+        self.directory.invalidate(node)
+        threading.Thread(
+            target=lambda: self.broker.handle_node_down(
+                node, dead=True, reason="node-dead"),
+            daemon=True, name=f"tpumounter-node-dead-{node}").start()
+
+    def _on_node_drain(self, node: str) -> None:
+        """The node announced a drain (worker healthz) or carries a
+        termination taint: proactively migrate slice groups off it
+        while its worker still answers; single leases detach through
+        their owners' own paths (the drain finishes them)."""
+        logger.info("node %s draining: migrating its slice groups",
+                    node)
+        threading.Thread(
+            target=lambda: self.broker.handle_node_down(
+                node, dead=False, reason="node-draining"),
+            daemon=True, name=f"tpumounter-node-drain-{node}").start()
+
+    def _repair_candidates(self, namespace: str, count: int,
+                           exclude) -> list[tuple[str, str]]:
+        """Spare pods slice self-healing may grow onto: Running pods
+        labelled ``tpumounter.io/slice-spare=true`` in the group's
+        namespace, on nodes the health tracker has not cordoned."""
+        selector = (f"{consts.SLICE_SPARE_LABEL_KEY}="
+                    f"{consts.SLICE_SPARE_LABEL_VALUE}")
+        try:
+            pods = self.kube.list_pods(namespace,
+                                       label_selector=selector)
+        except K8sApiError as e:
+            logger.warning("spare discovery in %s failed: %s", namespace,
+                           e)
+            return []
+        out: list[tuple[str, str]] = []
+        for pod in sorted(pods, key=objects.name):
+            key = (objects.namespace(pod), objects.name(pod))
+            node = objects.node_name(pod)
+            if key in exclude or not objects.is_running(pod) or not node:
+                continue
+            if self.nodehealth is not None \
+                    and self.nodehealth.cordoned(node):
+                continue
+            out.append(key)
+            if len(out) >= count:
+                break
+        return out
 
     def _fleet_targets(self) -> dict[str, str]:
         """{node: worker health base URL} for the fleet aggregator —
@@ -1182,6 +1278,25 @@ class MasterGateway:
             if not node:
                 raise PodNotFoundError(namespace, pod_name)
             annotate(node=node, tenant=tenant)
+        if self.nodehealth is not None and self.nodehealth.cordoned(node):
+            # suspect/draining/dead cordons the node from NEW grants
+            # only — live leases are untouched (suspect) or already
+            # fenced (dead). The pod lives on that node, so there is
+            # nowhere to re-place this attach: tell the client when to
+            # come back instead of burning a dial timeout on it.
+            state = self.nodehealth.state(node)
+            REGISTRY.admission_decisions.inc(tenant=tenant,
+                                             outcome="node_cordoned")
+            EVENTS.emit("admit_denied", rid=rid, tenant=tenant,
+                        chips=gpu_num, outcome="node_cordoned",
+                        node=node, node_state=state)
+            return 503, {
+                "result": "NodeCordoned",
+                "message": f"node {node} is {state}: new grants are "
+                           "cordoned until it recovers",
+                "node": node,
+                "node_state": state,
+                "retry_after_s": 15.0}
         return self.broker.attach(
             tenant=tenant, priority=priority, namespace=namespace,
             pod=pod_name, chips=gpu_num, node=node, rid=rid,

@@ -286,9 +286,17 @@ class LeaseTable:
                         pod=pod, chips=released)
         return released
 
-    def drop(self, namespace: str, pod: str) -> Lease | None:
-        """Remove the key's lease (preemption, expiry)."""
+    def drop(self, namespace: str, pod: str,
+             expected: Lease | None = None) -> Lease | None:
+        """Remove the key's lease (preemption, expiry, fencing).
+        ``expected`` makes it a compare-and-pop: the eviction lands only
+        if the table still holds THAT lease object — a caller that
+        decided on a snapshot (fencing, after its slow apiserver cleanup)
+        must not evict a lease re-granted in between."""
         with self._lock:
+            if expected is not None \
+                    and self._leases.get((namespace, pod)) is not expected:
+                return None
             lease = self._leases.pop((namespace, pod), None)
         if lease is not None:
             self._store_del(namespace, pod)

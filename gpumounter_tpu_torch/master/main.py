@@ -3,15 +3,15 @@ port of :mod:`gpumounter_tpu.master.main`).
 
 Run as: ``python -m gpumounter_tpu_torch.master.main``. The environment is
 the control plane's, the HA plane included (``TPU_MASTER_SHARDS``,
-``TPU_ELECTION``, ``TPU_INTENT_STORE``, ...; all off by default). Where the
-environment asks for a plane that is not ported yet (node health or the
-topology plane not set to ``0``), it logs one WARNING naming the ROADMAP
-item and serves as the control plane does with that plane off.
+``TPU_ELECTION``, ``TPU_INTENT_STORE``, ...; all off by default) and node
+health (``TPU_NODE_HEALTH``, on by default). Where the environment asks for
+the plane that is not ported yet (the topology plane, ``TPU_TOPOLOGY`` not
+set to ``0``), it logs one WARNING naming the ROADMAP item and serves as
+the control plane does with that plane off.
 """
 
 from __future__ import annotations
 
-import os
 import time
 
 from gpumounter_tpu_torch.k8s.client import default_kube_client
@@ -28,14 +28,10 @@ from gpumounter_tpu_torch.worker.grpc_server import (WorkerClient,
 logger = get_logger("master.main")
 
 
-def unported_planes(settings: Settings, env=None) -> list[str]:
+def unported_planes(settings: Settings) -> list[str]:
     """The planes the environment asks for that the port's master does not
     run yet, each with its ROADMAP item."""
-    env = os.environ if env is None else env
     asked = []
-    if env.get(consts.ENV_NODE_HEALTH, "1") != "0":
-        asked.append(f"node health ({consts.ENV_NODE_HEALTH}; "
-                     "Queue 1 item 12c)")
     if settings.topology_enabled:
         asked.append(f"topology and defrag ({consts.ENV_TOPOLOGY}; "
                      "Queue 1 item 12d)")

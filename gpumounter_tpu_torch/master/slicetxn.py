@@ -40,6 +40,13 @@ the re-federation barrier (the port of
    completes it freezes the federation plan every member receives. Every
    barrier state change crosses :meth:`SliceTxnManager._barrier_transition`.
 
+5. **Self-healing** (the node failure domain, master/nodehealth.py): a
+   group whose member's node is judged dead is repaired onto a spare pod
+   (``tpumounter.io/slice-spare=true``) under the SAME group lease with
+   one generation bump, or torn down as a unit when no spare (or no
+   repair budget) is left; a member on a draining node is migrated
+   grow-first, and deferred — never torn down — when no spare exists.
+
 Without a queue timeout gangs never park and without a lease TTL groups
 never expire: the plain all-or-nothing fan-out with rollback.
 """
@@ -57,6 +64,7 @@ from gpumounter_tpu_torch.master.store import (SliceBarrierRecord,
                                                SliceTxnRecord)
 from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.errors import (QueueFullError,
+                                               QuotaExceededError,
                                                StoreFencedError,
                                                TopologyError)
 from gpumounter_tpu_torch.utils.events import EVENTS
@@ -70,6 +78,12 @@ logger = get_logger("master.slicetxn")
 # failure a gang parks on instead of failing fast.
 _INSUFFICIENT = consts.AddResult.INSUFFICIENT_GPU.name
 _ATTACHED = consts.AddResult.SUCCESS.name
+
+# The slice-repair budget counts within a sliding window, not over the
+# group's lifetime: the budget exists to stop a crash-LOOPING node from
+# grinding the spare pool, and a long-lived gang that legitimately
+# survived N spot deaths over weeks must not be torn down on the Nth.
+REPAIR_BUDGET_WINDOW_S = 1800.0
 
 
 def _pod_key(namespace: str, pod: str) -> str:
@@ -132,6 +146,19 @@ class SliceTxnManager:
         self._barriers: dict[str, _Barrier] = {}
         # test seam: a hook between hosts of one fan-out
         self.before_host_attach = None
+        # Slice self-healing (node failure domain): spare-pod discovery
+        # bound by the gateway (candidates_fn(namespace, count, exclude)
+        # -> [(ns, pod), ...] on healthy nodes), per-group in-flight
+        # guard, per-group consumed repair budget, and the live repair
+        # threads (join_repairs drains them in tests).
+        self._candidates_fn = None
+        self._repairing: set[str] = set()
+        # group -> (repairs consumed, window start monotonic); the
+        # window resets after REPAIR_BUDGET_WINDOW_S of quiet and the
+        # key is deleted at teardown (a reused group name must not
+        # inherit an exhausted budget)
+        self._repair_counts: dict[str, tuple[int, float]] = {}
+        self._repair_threads: list[threading.Thread] = []
 
     # -- plumbing --------------------------------------------------------------
 
@@ -592,6 +619,260 @@ class SliceTxnManager:
         coordinator = self._coordinator()
         return coordinator.detach(pods, force=force, request_id=rid,
                                   cause=cause)
+
+    # -- slice self-healing (node failure domain, master/nodehealth.py) --------
+
+    def bind_repair_candidates(self, fn) -> None:
+        """``fn(namespace, count, exclude) -> [(ns, pod), ...]`` — spare
+        pods (Running, labelled ``tpumounter.io/slice-spare=true``, on
+        non-cordoned nodes) the repair txn may grow the gang onto."""
+        self._candidates_fn = fn
+
+    def request_repair(self, group: str, down_members:
+                       list[tuple[str, str]], dead: bool,
+                       reason: str) -> bool:
+        """Queue a self-healing repair for ``group`` whose
+        ``down_members`` sit on a dead (``dead=True``, fenced) or
+        draining (``dead=False``, cleanly migrated) node. Runs on its
+        own thread — the caller is the fleet tick, which must not block
+        on worker RPC fan-outs. One repair per group at a time; the
+        per-group budget (``slice_repair_budget``) turns a
+        crash-looping node into a teardown instead of an infinite
+        spare-pool grind. Returns False when a repair for the group is
+        already in flight."""
+        with self._lock:
+            if group in self._repairing:
+                return False
+            self._repairing.add(group)
+        thread = threading.Thread(
+            target=self._run_repair, args=(group, down_members, dead,
+                                           reason),
+            daemon=True, name=f"tpumounter-slice-repair-{group}")
+        thread.start()
+        with self._lock:
+            # registered AFTER start: join_repairs must never see a
+            # not-yet-started thread (join would raise)
+            self._repair_threads.append(thread)
+            self._repair_threads = [t for t in self._repair_threads
+                                    if t.is_alive() or t is thread]
+        return True
+
+    def join_repairs(self, timeout_s: float = 30.0) -> None:
+        """Test helper: block until every queued repair resolved."""
+        deadline = time.monotonic() + timeout_s
+        with self._lock:
+            threads = list(self._repair_threads)
+        for thread in threads:
+            thread.join(timeout=max(0.0, deadline - time.monotonic()))
+
+    def _run_repair(self, group: str, down_members:
+                    list[tuple[str, str]], dead: bool,
+                    reason: str) -> None:
+        try:
+            self.repair_group(group, down_members, dead=dead,
+                              reason=reason)
+        except Exception:    # noqa: BLE001 — a dead repair thread must
+            # not strand the in-flight guard (the next health tick may
+            # re-request); the group stays visibly broken for doctor
+            logger.exception("slice repair of group %s failed", group)
+            REGISTRY.slice_repairs.inc(outcome="failed")
+            EVENTS.emit("slice_repair", group=group, outcome="failed",
+                        reason=reason, dead=dead)
+        finally:
+            with self._lock:
+                self._repairing.discard(group)
+
+    def repair_group(self, group: str, down_members:
+                     list[tuple[str, str]], dead: bool = True,
+                     reason: str = "node-dead",
+                     rid: str | None = None) -> dict:
+        """Repair the gang, don't restart the job: replace the down
+        members with spare hosts UNDER THE SAME group lease, as one
+        repair transaction riding the crash-safe slice-txn machinery —
+        the mesh generation bumps exactly once, on full actuation, so
+        the elastic job (torchcheck/elastic.py) drains → re-forms instead
+        of dying. Dead members are fenced through the broker's one-way
+        eviction seam; draining members are detached cleanly (their
+        worker still answers — proactive migration). With no spare
+        capacity (or the repair budget exhausted) the group is torn
+        down AS A UNIT — never left half-alive."""
+        rid = rid or ("repair-" + uuid_mod.uuid4().hex[:8])
+        down = set(down_members)
+        members = self.broker.leases.group_leases(group)
+        if not members:
+            return {"outcome": "gone", "group": group}
+        info = self._ensure_group_info(group, members)
+        gpus = int(info.get("gpus_per_host") or members[0].chips or 1)
+        tenant = members[0].tenant
+        priority = members[0].priority
+        down_leases = [m for m in members if (m.namespace, m.pod) in down]
+        survivors = [(m.namespace, m.pod) for m in members
+                     if (m.namespace, m.pod) not in down]
+        if not dead:
+            # proactive migration off a still-answering node: grow-
+            # first (the group never drops below strength), NO budget
+            # and NO teardown — routine maintenance draining every
+            # member host in sequence must never destroy a healthy gang
+            return self._migrate(group, down_leases, survivors, gpus,
+                                 tenant, priority, reason, rid)
+        # DEAD-node repair consumes the per-group budget (a crash-
+        # looping node must not grind the spare pool); the window
+        # resets after a quiet period so a long-lived gang is not
+        # punished for surviving unrelated deaths weeks apart
+        now = time.monotonic()
+        with self._lock:
+            spent, window_start = self._repair_counts.get(group,
+                                                          (0, now))
+            if now - window_start > REPAIR_BUDGET_WINDOW_S:
+                spent, window_start = 0, now      # quiet period passed
+            self._repair_counts[group] = (spent + 1, window_start)
+        budget = self.broker.config.slice_repair_budget
+        # 1. fence the dead members (no worker to dial; cluster-side
+        # revocation + zombie-rejoin convergence) — also frees their
+        # quota for the grow txn below
+        for lease in down_leases:
+            self.broker.fence_lease(lease,
+                                    reason=f"slice-repair:{reason}")
+        # 2. over budget → teardown
+        if spent >= budget:
+            return self._teardown_group(
+                group, survivors, rid,
+                cause=f"slice-repair-budget:{reason}", reason=reason)
+        # 3. pick spares on healthy nodes
+        spares = self._pick_spares(group, members, len(down_leases))
+        if len(spares) < len(down_leases):
+            # no capacity to re-form the gang: tear it down as a unit —
+            # n-1 hosts hold GPUs a broken world can't use
+            return self._teardown_group(
+                group, survivors, rid,
+                cause=f"slice-repair-nocapacity:{reason}", reason=reason)
+        # 4. the repair transaction: grow delta onto the spares, joining
+        # the SAME group — crash-safe (intent record + commit markers),
+        # adopted by a surviving leader like any slice txn
+        status, payload = self.attach(
+            spares, gpus, tenant=tenant, priority=priority, rid=rid,
+            lease_group=group)
+        if status != 200:
+            # the grow txn rolled itself back; the gang cannot re-form —
+            # teardown, never half-alive
+            logger.warning("slice repair of group %s could not grow "
+                           "onto %s (%s); tearing the group down",
+                           group, spares, payload.get("result"))
+            return self._teardown_group(
+                group, survivors, rid,
+                cause=f"slice-repair-failed:{reason}", reason=reason)
+        target = survivors + list(spares)
+        generation = self._bump_generation(group, target, gpus, rid)
+        REGISTRY.slice_repairs.inc(outcome="repaired")
+        EVENTS.emit("slice_repair", rid=rid, group=group,
+                    outcome="repaired", reason=reason, dead=True,
+                    replaced=len(down_leases), hosts=len(target),
+                    generation=generation)
+        logger.info("[rid=%s] slice group %s repaired: %d member(s) "
+                    "replaced by %s, generation -> %d", rid, group,
+                    len(down_leases), spares, generation)
+        return {"outcome": "repaired", "group": group,
+                "generation": generation, "added": list(spares)}
+
+    def _pick_spares(self, group: str, members,
+                     count: int) -> list[tuple[str, str]]:
+        if self._candidates_fn is None or count <= 0:
+            return []
+        exclude = {(m.namespace, m.pod) for m in members}
+        try:
+            return list(self._candidates_fn(members[0].namespace, count,
+                                            exclude))
+        except Exception:    # noqa: BLE001 — discovery trouble reads
+            logger.exception(   # as no capacity, judged by the caller
+                "spare discovery for group %s failed", group)
+            return []
+
+    def _migrate(self, group: str, down_leases, survivors, gpus: int,
+                 tenant: str, priority: str, reason: str,
+                 rid: str) -> dict:
+        """Proactive migration (draining node / termination taint):
+        GROW-first so the group never drops below strength, then a
+        clean (force=False) detach of the leaving members. Every
+        obstacle — no spare, grow rolled back, member busy — DEFERS:
+        the node still answers and the gang still works, so doing
+        nothing is strictly better than tearing anything down (if the
+        node later actually dies, the dead path takes over)."""
+        def defer(why: str) -> dict:
+            REGISTRY.slice_repairs.inc(outcome="failed")
+            EVENTS.emit("slice_repair", rid=rid, group=group,
+                        outcome="failed", reason=reason, dead=False,
+                        deferred=True, why=why)
+            logger.info("[rid=%s] migration of group %s deferred: %s",
+                        rid, group, why)
+            return {"outcome": "deferred", "group": group, "why": why}
+
+        members = self.broker.leases.group_leases(group)
+        spares = self._pick_spares(group, members, len(down_leases))
+        if len(spares) < len(down_leases):
+            return defer("no spare capacity")
+        try:
+            status, payload = self.attach(
+                spares, gpus, tenant=tenant, priority=priority, rid=rid,
+                lease_group=group)
+        except (QuotaExceededError, QueueFullError, TopologyError) as e:
+            # grow-first temporarily needs +spare GPUs of quota
+            # headroom; a capped tenant defers (the dead path, which
+            # fences first, does not pay this)
+            return defer(f"grow refused: {e.__class__.__name__}")
+        if status != 200:
+            return defer(f"grow refused: {payload.get('result')}")
+        pods = [(m.namespace, m.pod) for m in down_leases]
+        ok, results = self.detach_members(
+            pods, cause=f"slice-migrate:{rid}", force=False, rid=rid)
+        for result in results:
+            if result.result in ROLLBACK_CLEAN:
+                self.broker.release(result.namespace, result.pod)
+        # membership = whatever the lease table now holds (spares in;
+        # leavers out unless their devices were busy — those stay until
+        # the drain finishes them or the dead path fences them)
+        target = [(m.namespace, m.pod)
+                  for m in self.broker.leases.group_leases(group)]
+        generation = self._bump_generation(group, target, gpus, rid)
+        REGISTRY.slice_repairs.inc(outcome="migrated")
+        EVENTS.emit("slice_repair", rid=rid, group=group,
+                    outcome="migrated", reason=reason, dead=False,
+                    replaced=len(down_leases), hosts=len(target),
+                    generation=generation, shrink_deferred=not ok)
+        logger.info("[rid=%s] slice group %s migrated onto %s, "
+                    "generation -> %d%s", rid, group, spares, generation,
+                    "" if ok else " (shrink deferred: busy member)")
+        return {"outcome": "migrated", "group": group,
+                "generation": generation, "added": list(spares),
+                "shrink_deferred": not ok}
+
+    def _teardown_group(self, group: str, survivors:
+                        list[tuple[str, str]], rid: str, cause: str,
+                        reason: str) -> dict:
+        """Tear the group down as a unit: surviving members detach
+        through the normal worker path; any lease left behind (its
+        worker died mid-teardown) is fenced — the group must not
+        outlive the decision half-alive."""
+        if survivors:
+            _, results = self.detach_members(survivors, cause=cause,
+                                             force=True, rid=rid)
+            for result in results:
+                if result.result in ROLLBACK_CLEAN:
+                    self.broker.release(result.namespace, result.pod)
+        for lease in self.broker.leases.group_leases(group):
+            self.broker.fence_lease(lease, reason="slice-teardown")
+        self._drop_barrier(group, reason="torn-down")
+        with self._lock:
+            self._repair_counts.pop(group, None)
+        REGISTRY.slice_repairs.inc(outcome="torn_down")
+        EVENTS.emit("slice_repair", rid=rid, group=group,
+                    outcome="torn_down", reason=reason,
+                    hosts=len(survivors))
+        logger.warning("[rid=%s] slice group %s torn down as a unit "
+                       "(%s): %d surviving member(s) detached", rid,
+                       group, cause, len(survivors))
+        self.broker.signal_capacity()
+        self.broker.poke_peers()
+        return {"outcome": "torn_down", "group": group}
 
     # -- re-federation barrier (torchcheck/federation.py is the member side) ---
 

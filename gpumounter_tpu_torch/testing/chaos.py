@@ -5,8 +5,9 @@ connection, and the :class:`Fault` rules a :class:`FaultInjector` applies
 at the fakes' seams (``FakeKubeClient.faults``, ``HttpApiserver.faults``),
 the broker contract :func:`assert_broker_invariants` and the multi-host
 slice contract :func:`assert_slice_invariants`, each with its intent-store
-clause. The fault plans, crash points, chaos rigs and the node-health
-clauses arrive with ROADMAP Queue 1 items 12c and 12e.
+and node-death clauses (:func:`assert_node_death_invariants`). The fault
+plans, crash points, chaos rigs and the topology and defrag clauses arrive
+with ROADMAP Queue 1 items 12d and 12e.
 """
 
 from __future__ import annotations
@@ -161,7 +162,49 @@ def _store_view(store):
     return stored, waiters, slices
 
 
-def assert_broker_invariants(broker, sim, store=None) -> None:
+def assert_node_death_invariants(broker, health) -> None:
+    """The node-failure-domain clauses (shared by the broker and slice
+    invariant suites; ``health`` = the master's NodeHealthTracker):
+
+    1. **No lease outlives its node's death**: once a node is judged
+       ``dead``, every lease on it must have been fenced (single) or
+       repaired/torn down (group) — a lease still naming a dead node
+       is exactly the stranded state the fencing deadline exists to
+       bound.
+    2. **No group mixes fenced and live members**: a slice either
+       re-formed whole (every member on a non-dead node) or went down
+       as a unit — a group with some members fenced and others still
+       leased is a half-alive slice, the state self-healing must never
+       leave behind.
+    """
+    stranded = [f"{lease.namespace}/{lease.pod}@{lease.node}"
+                for lease in broker.leases.leases()
+                if lease.node and health.state(lease.node) == "dead"]
+    assert not stranded, \
+        f"lease(s) survive on DEAD node(s) past the fencing deadline: " \
+        f"{stranded}"
+    fenced_groups = {entry["group"] for entry in broker.fenced()
+                     if entry.get("group")}
+    for group, members in sorted(broker.leases.groups().items()):
+        dead_members = [f"{m.namespace}/{m.pod}@{m.node}"
+                        for m in members
+                        if m.node and health.state(m.node) == "dead"]
+        assert not dead_members, \
+            f"group {group} mixes live members with dead-node " \
+            f"members {dead_members} (half-alive slice)"
+        if group in fenced_groups:
+            # a group that had members fenced must have re-formed to
+            # its full strength on live nodes (the repair txn) — its
+            # remaining members holding on is the mixed state
+            assert all(m.node == "" or health.state(m.node) == "healthy"
+                       or health.state(m.node) == "draining"
+                       for m in members), \
+                f"group {group} had fenced members but still holds " \
+                f"leases on unhealthy nodes"
+
+
+def assert_broker_invariants(broker, sim, store=None,
+                             health=None) -> None:
     """The broker-layer contract after any contention, lease-race,
     restart or failover scenario:
 
@@ -174,10 +217,13 @@ def assert_broker_invariants(broker, sim, store=None) -> None:
        shards account exactly the ground-truth GPUs, and no waiter or
        slice txn record outlives its resolution — what a failed-over
        peer would rehydrate is the truth.
+    4. **Node-death clauses** (``health`` given — the master's
+       NodeHealthTracker): see :func:`assert_node_death_invariants`.
 
-    (The control plane's node-death and defrag clauses come with those
-    planes.)
+    (The control plane's defrag clause comes with that plane.)
     """
+    if health is not None:
+        assert_node_death_invariants(broker, health)
     held = _held_by_owner(sim)
     leased = {lease.key: lease.chips for lease in broker.leases.leases()}
     assert leased == held, \
@@ -200,7 +246,8 @@ def assert_broker_invariants(broker, sim, store=None) -> None:
             f"resolution: {[r.txn_id for r in slice_records]}"
 
 
-def assert_slice_invariants(broker, sims, kube=None, store=None) -> None:
+def assert_slice_invariants(broker, sims, kube=None, store=None,
+                            health=None) -> None:
     """The multi-host slice contract after any slice scenario (competing
     gangs, resizes, rollbacks): **zero half-attached slices**, judged
     against cluster ground truth across EVERY simulated node.
@@ -214,14 +261,17 @@ def assert_slice_invariants(broker, sims, kube=None, store=None) -> None:
     4. ``store`` given: no slice txn record outlives its resolution and
        none is torn; persisted lease records match ground truth — what a
        failed-over peer would rehydrate is the truth.
+    5. ``health`` given: the node-death clauses
+       (:func:`assert_node_death_invariants`) — no lease on a dead node,
+       no group mixing fenced and live members.
     6. Re-federation barrier sanity: joined ⊆ membership, and a COMPLETE
        barrier has every member joined.
     7. ``kube`` given (the master's apiserver view): no mixed-generation
        world — every member pod of a group carries the same
        ``tpumounter.io/mesh-generation`` annotation (where stamped).
-
-    (The control plane's clause 5, node health, comes with that plane.)
     """
+    if health is not None:
+        assert_node_death_invariants(broker, health)
     held: dict[tuple[str, str], int] = {}
     txn_holders: dict[str, set[tuple[str, str]]] = {}
     for sim in sims:

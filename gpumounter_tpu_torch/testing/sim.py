@@ -16,8 +16,9 @@ puts a real gRPC worker and a real HTTP master in front of it;
 ``MultiNodeStack`` puts N such workers (GKE GPU nodes) behind one master,
 the multi-host slice topology; ``MultiMasterStack`` puts N HA masters
 (election, intent store, shard forwarding) over one cluster and one
-worker. ``MultiNodeStack``'s node-failure and fragmentation primitives
-arrive with the planes they exercise (ROADMAP Queue 1 items 12c, 12d).
+worker. ``MultiNodeStack`` carries the node-failure primitives (health
+sidecars, spare pods, ``kill_node``/``restart_node``); its fragmentation
+primitive arrives with the defragmenter (ROADMAP Queue 1 item 12d).
 """
 
 from __future__ import annotations
@@ -68,6 +69,19 @@ def make_gpu_node(name="node-a", accelerator="nvidia-h100-80gb", gpus=8):
         node["metadata"]["labels"] = {
             consts.LABEL_GPU_ACCELERATOR: accelerator}
     return node
+
+
+def delete_slave_pods(clusters, namespace: str, pod: str) -> None:
+    """Delete the slave pods owned by ``namespace/pod`` in every cluster of
+    ``clusters`` (``(kube, pool namespace)`` pairs): the one apiserver a
+    deployment has, for test stacks that split it per node. Deleting
+    releases the scheduler reservation through the sim's on_delete hook,
+    as the real control loop does."""
+    selector = (f"{consts.OWNER_POD_LABEL_KEY}={pod},"
+                f"{consts.OWNER_NAMESPACE_LABEL_KEY}={namespace}")
+    for kube, pool in clusters:
+        for slave in kube.list_pods(pool, label_selector=selector):
+            kube.delete_pod(pool, objects.name(slave))
 
 
 def worker_pod(node, ip, name="w1", grpc_port: int | None = None):
@@ -382,6 +396,26 @@ class WorkerRig:
             next_pid += 1
         return out
 
+    def restart_worker(self) -> dict[str, int]:
+        """A fresh worker process over this rig's surviving state: a fresh
+        journal object over the same file, a fresh DeviceGate over the
+        SAME backend (kernel maps survive a crash), a fresh service and
+        its startup replay. Returns the replay outcome counts (the
+        zombie-rejoin convergence)."""
+        from gpumounter_tpu_torch.worker.journal import AttachJournal
+        from gpumounter_tpu_torch.worker.service import GPUMountService
+        self.journal = AttachJournal(self.sim.settings.journal_path)
+        if self.gate is not None:
+            from gpumounter_tpu_torch.actuation.gate import DeviceGate
+            self.gate = DeviceGate(self.cgroups, self.gate_backend,
+                                   journal=self.journal, mode="auto",
+                                   node_name=self.sim.node)
+            self.mounter.gate = self.gate
+        self.service = GPUMountService(self.allocator, self.mounter,
+                                       self.sim.kube, self.sim.settings,
+                                       pool=self.pool, journal=self.journal)
+        return self.service.replay_journal()
+
     def fill_warm_pool(self, timeout_s: float = 30.0) -> None:
         """Drive pool reconciliation until every configured key holds its
         target count of Running (adoptable) warm pods."""
@@ -650,10 +684,24 @@ class MultiNodeStack:
     GKE node (``cloud.google.com/gke-accelerator: nvidia-h100-80gb``,
     ``n_chips`` allocatable ``nvidia.com/gpu``) holding pod
     ``workload-i``; the master reads the node objects, so a slice's
-    ``gpusPerHost`` must be the whole host."""
+    ``gpusPerHost`` must be the whole host.
+
+    Node failure domain support: ``health=True`` gives each simulated
+    worker its own real health sidecar (ephemeral port) — what the
+    master's fleet aggregator scrapes and its node-health tracker judges;
+    :meth:`kill_node` SIGKILLs a simulated worker (gRPC + health sidecar
+    down, nothing cleaned up — the fleet scrape starts missing and the
+    master's node-health machinery takes it from there);
+    :meth:`restart_node` boots a fresh "worker process" over the same node
+    state (same journal file, same gate backend, fresh servers). Because
+    this stack keeps the production's ONE apiserver split across per-rig
+    fakes (each rig's slave pods live in its own sim), the broker's fence
+    cleanup is bridged to delete a fenced owner's slave pods in whichever
+    rig's cluster holds them — exactly what the single production
+    apiserver would do."""
 
     def __init__(self, hosts: list, n_chips=4, broker_config=None,
-                 gate=False):
+                 gate=False, health: bool = False):
         from gpumounter_tpu_torch.master.admission import AttachBroker
         from gpumounter_tpu_torch.master.discovery import WorkerDirectory
         from gpumounter_tpu_torch.master.gateway import MasterGateway
@@ -662,6 +710,10 @@ class MultiNodeStack:
         self.rigs: list[WorkerRig] = []
         self.grpc_servers = []
         self.grpc_ports: list[int] = []
+        self.health = health
+        self.health_servers: list = []
+        self._health_bases: dict[str, str] = {}
+        self.dead_nodes: set[int] = set()
         self.master_kube = FakeKubeClient()
         for i, host in enumerate(hosts):
             rig = WorkerRig(host, n_chips=n_chips, node=f"node-{i}",
@@ -676,6 +728,8 @@ class MultiNodeStack:
             server.start()
             self.grpc_servers.append(server)
             self.grpc_ports.append(port)
+            self.health_servers.append(self._start_health(rig, port)
+                                       if health else None)
             self.master_kube.put_pod(worker_pod(
                 f"node-{i}", "127.0.0.1", name=f"w{i}", grpc_port=port))
             self.master_kube.put_pod(rig.pod)
@@ -683,7 +737,12 @@ class MultiNodeStack:
                   if broker_config is not None else None)
         self.gateway = MasterGateway(
             self.master_kube, WorkerDirectory(self.master_kube),
+            worker_tracez_base=(self._health_bases.get if health
+                                else None),
             broker=broker)
+        # split-view bridge (see class docstring): fencing deletes the
+        # owner's slave pods in the rig cluster that actually holds them
+        self.gateway.broker.fence_cleanup = self._fence_cleanup
         self.http_server = self.gateway.serve(port=0, address="127.0.0.1")
         self.base = f"http://127.0.0.1:{self.http_server.server_port}"
 
@@ -694,24 +753,103 @@ class MultiNodeStack:
         rig.drain.register_flush(rig.service.flush_mesh_generation)
         rig.service.drain = rig.drain
 
-    def add_workload(self, i: int, name: str) -> objects.Pod:
+    def _start_health(self, rig: WorkerRig, grpc_port: int):
+        from gpumounter_tpu_torch.worker.main import start_health_server
+        hs = start_health_server(0, journal=rig.journal,
+                                 cache=rig.service.reads, gate=rig.gate,
+                                 drain=rig.drain, ready=True)
+        self._health_bases[f"127.0.0.1:{grpc_port}"] = \
+            f"http://127.0.0.1:{hs.server_port}"
+        return hs
+
+    # -- workload / spare provisioning -----------------------------------------
+
+    def add_workload(self, i: int, name: str,
+                     spare: bool = False) -> objects.Pod:
         """A second workload pod on node ``i``, provisioned (cgroup +
         live pid) and visible to BOTH the master and the node's worker.
-        (The control plane's ``spare=`` label for slice repair comes with
-        ROADMAP Queue 1 item 12c.)"""
+        ``spare=True`` labels it as a slice-repair spare
+        (``tpumounter.io/slice-spare=true``) — what self-healing grows
+        a broken gang onto."""
         rig = self.rigs[i]
         pod = rig.sim.add_target_pod(
             name=name, uid=f"uid-{name}",
             container_id="containerd://" + (f"{i:02x}" * 32)[:64])
+        if spare:
+            pod["metadata"]["labels"][consts.SLICE_SPARE_LABEL_KEY] = \
+                consts.SLICE_SPARE_LABEL_VALUE
+            rig.sim.kube.put_pod(pod)
         rig.provision_container(pod)
         self.master_kube.put_pod(pod)
         return pod
+
+    # -- node failure primitives -----------------------------------------------
+
+    def kill_node(self, i: int) -> None:
+        """SIGKILL node ``i``'s worker: gRPC server and health sidecar
+        go down mid-steady-state, nothing is cleaned up — its journal
+        file, gate backend and cluster state stay exactly as the crash
+        left them (restart_node boots over them)."""
+        self.dead_nodes.add(i)
+        self.grpc_servers[i].stop(grace=0)
+        hs = self.health_servers[i] if self.health else None
+        if hs is not None:
+            hs.shutdown()
+            # close the LISTENING socket too: shutdown() only stops the
+            # serve loop, leaving the backlog accepting connections that
+            # never answer — a dead process refuses instantly, and the
+            # fleet scrape must see that, not a 3s read timeout per tick
+            hs.server_close()
+
+    def restart_node(self, i: int) -> dict[str, int]:
+        """Boot a fresh "worker process" over node ``i``'s surviving
+        state (``WorkerRig.restart_worker``: journal replay, the gate over
+        the same backend), then fresh gRPC + health servers on new ports,
+        announced to the master. Returns the replay outcome counts."""
+        from gpumounter_tpu_torch.worker.grpc_server import build_server
+        rig = self.rigs[i]
+        outcomes = rig.restart_worker()
+        self._attach_drain(rig)
+        server, port = build_server(rig.service, port=0,
+                                    address="127.0.0.1")
+        server.start()
+        self.grpc_servers[i] = server
+        self.grpc_ports[i] = port
+        if self.health:
+            self.health_servers[i] = self._start_health(rig, port)
+        self.master_kube.put_pod(worker_pod(
+            f"node-{i}", "127.0.0.1", name=f"w{i}", grpc_port=port))
+        self.gateway.directory.invalidate(f"node-{i}")
+        # force the directory to see the restarted worker NOW: the TTL
+        # refresh would take up to 15 wall-clock seconds, which manual-
+        # tick tests do not have
+        self.gateway.directory._refresh()
+        # the fleet's scrape breaker opened against the dead sidecar;
+        # the restarted one lives at a NEW address, so the failure
+        # history is the dead incarnation's — drop it so recovery is
+        # immediate
+        with self.gateway.fleet._lock:
+            self.gateway.fleet._breakers.pop(f"node-{i}", None)
+        self.dead_nodes.discard(i)
+        return outcomes
+
+    def _fence_cleanup(self, namespace: str, pod: str) -> None:
+        delete_slave_pods([(rig.sim.kube, rig.sim.settings.pool_namespace)
+                           for rig in self.rigs], namespace, pod)
 
     def close(self) -> None:
         self.gateway.fleet.stop()
         self.gateway.broker.stop()
         self.http_server.shutdown()
-        for server in self.grpc_servers:
-            server.stop(grace=0)
+        for server in self.health_servers:
+            if server is None:
+                continue
+            try:
+                server.shutdown()
+            except Exception:       # noqa: BLE001 — may be dead mid-test
+                pass
+        for i, server in enumerate(self.grpc_servers):
+            if i not in self.dead_nodes:
+                server.stop(grace=0)
         for rig in self.rigs:
             rig.close()

@@ -85,9 +85,13 @@ def _body(members, **extra) -> bytes:
 class _SliceStack:
     """Host 0 (``_Stack``), hosts 1-3 (``WorkerRig`` + gRPC server) and the
     master in front of all four; :meth:`close` stops every server and
-    thread."""
+    thread. ``health=True`` gives every host its worker's health sidecar
+    (the fixture hosts with a ``DrainController`` and the fake device
+    gate), which the master's fleet loop scrapes; without it the fleet
+    scrapes nothing."""
 
-    def __init__(self, root: str, enumerator: Enumerator):
+    def __init__(self, root: str, enumerator: Enumerator,
+                 health: bool = False):
         from gpumounter_tpu_torch.k8s.client import InClusterKubeClient
         from gpumounter_tpu_torch.master.admission import (AttachBroker,
                                                            BrokerConfig)
@@ -97,12 +101,21 @@ class _SliceStack:
                                                       make_gpu_node,
                                                       worker_pod)
         from gpumounter_tpu_torch.utils.config import HostPaths
-        from gpumounter_tpu_torch.worker.grpc_server import build_server
 
         self.worker = _Stack(os.path.join(root, "host0"), enumerator)
         self._closers: list[Callable[[], object]] = [self.worker.close]
         self.worker.kube.put_pod(worker_pod(NODE, "127.0.0.1", name="w0",
                                             grpc_port=self.worker.port))
+        self.health = health
+        # gRPC target -> its health sidecar's base URL (the fleet's view)
+        self.health_bases: dict[str, str] = {}
+        # per host: the sidecar (None without health); fixture hosts also
+        # their gRPC server (host 0's is the _Stack's own)
+        self.sidecars: list = [self._sidecar(
+            f"127.0.0.1:{self.worker.port}", journal=self.worker.journal,
+            cache=self.worker.reads, agent=self.worker.agent,
+            gate=self.worker.gate)]
+        self.servers: list = [None]
         self.nodes = [NODE]
         self.rigs = []
         for i in range(1, HOSTS):
@@ -116,34 +129,80 @@ class _SliceStack:
                                                       "cgroup"))
             node_name = f"gpu-node-{i}"
             rig = WorkerRig(host, n_chips=1, node=node_name,
-                            pod_name=f"workload-{i}")
+                            pod_name=f"workload-{i}", gate=health)
             self._closers.append(rig.close)
             node = make_gpu_node(node_name, ACCELERATOR, gpus=1)
             rig.sim.kube.put_node(node)
-            server, port = build_server(rig.service, port=0,
-                                        address="127.0.0.1")
-            server.start()
-            self._closers.append(lambda s=server: s.stop(grace=0).wait())
-            # the master's view: the node, the worker pod, the target pod
+            # the master's view: the node, the target pod
             self.worker.kube.put_node(node)
-            self.worker.kube.put_pod(worker_pod(
-                node_name, "127.0.0.1", name=f"w{i}", grpc_port=port))
             self.worker.kube.put_pod(rig.pod)
             self.rigs.append(rig)
             self.nodes.append(node_name)
+            self.servers.append(None)
+            self.sidecars.append(None)
+            self.start_host(i)
+        self._closers.append(self.stop_hosts)
         self.kube = InClusterKubeClient(host=self.worker.facade.base,
                                         sa_dir=self.worker.sa_dir)
         config = BrokerConfig.from_settings(self.worker.settings)
         config.queue_timeout_s = QUEUE_TIMEOUT_S
         config.gang_hold_s = GANG_HOLD_S
-        # no worker here runs a health sidecar: the fleet view scrapes
-        # nothing (None base) instead of dialling grpc_port + 1
+        # without sidecars the fleet view scrapes nothing (None base)
+        # instead of dialling grpc_port + 1
         self.gateway = MasterGateway(self.kube, WorkerDirectory(self.kube),
-                                     worker_tracez_base=lambda target: None,
+                                     worker_tracez_base=self.health_bases.get,
                                      broker=AttachBroker(self.kube, config))
+
+    def serve(self) -> "_SliceStack":
         self.http = self.gateway.serve(port=0, address="127.0.0.1")
         self._closers.append(self.http.shutdown)
         self.base = f"http://127.0.0.1:{self.http.server_port}"
+        return self
+
+    def _sidecar(self, target: str, **state):
+        if not self.health:
+            return None
+        from gpumounter_tpu_torch.worker.main import start_health_server
+        server = start_health_server(0, ready=True, **state)
+        self.health_bases[target] = \
+            f"http://127.0.0.1:{server.server_port}"
+        return server
+
+    def start_host(self, i: int) -> None:
+        """Serve fixture host ``i``'s worker (gRPC, and its sidecar with
+        health on) on fresh ports and announce it to the master's view."""
+        from gpumounter_tpu_torch.testing.sim import worker_pod
+        from gpumounter_tpu_torch.worker.drain import DrainController
+        from gpumounter_tpu_torch.worker.grpc_server import build_server
+        rig = self.rigs[i - 1]
+        if self.health:
+            rig.drain = DrainController(self.nodes[i])
+            rig.drain.register_flush(rig.service.flush_mesh_generation)
+            rig.service.drain = rig.drain
+        server, port = build_server(rig.service, port=0,
+                                    address="127.0.0.1")
+        server.start()
+        self.servers[i] = server
+        self.sidecars[i] = self._sidecar(
+            f"127.0.0.1:{port}", journal=rig.journal,
+            cache=rig.service.reads, gate=rig.gate, drain=rig.drain)
+        self.worker.kube.put_pod(worker_pod(
+            self.nodes[i], "127.0.0.1", name=f"w{i}", grpc_port=port))
+
+    def stop_host(self, i: int) -> None:
+        """Stop host ``i``'s servers as a crash does: nothing released,
+        the listening sockets closed (a dead process refuses at once)."""
+        if self.servers[i] is not None:
+            self.servers[i].stop(grace=0).wait()
+            self.servers[i] = None
+        if self.sidecars[i] is not None:
+            self.sidecars[i].shutdown()
+            self.sidecars[i].server_close()
+            self.sidecars[i] = None
+
+    def stop_hosts(self) -> None:
+        for i in range(HOSTS):
+            self.stop_host(i)
 
     def sims(self) -> list:
         return [self.worker.sim] + [rig.sim for rig in self.rigs]
@@ -169,21 +228,23 @@ def _by_pod(payload) -> dict[str, str]:
 
 
 def _join_all(base: str, group: str, generation: int, members) -> dict:
-    """Every member of ``members`` joins the barrier from its own thread
-    (as each member process does), then each reads the plan."""
+    """Every member of ``members`` ("ns/pod" keys) joins the barrier from
+    its own thread (as each member process does, the n-th proposing port
+    29500 + n), then each reads the plan."""
     from gpumounter_tpu_torch.torchcheck.federation import BarrierClient
     plans: dict[str, dict] = {}
     errors: list[str] = []
 
-    def member(i: int) -> None:
-        client = BarrierClient(base, group, _member(i))
+    def member(key: str, port: int) -> None:
+        client = BarrierClient(base, group, key)
         try:
-            client.join(generation, f"127.0.0.1:{29500 + i}")
-            plans[_member(i)] = client.wait(generation, timeout_s=30.0)
+            client.join(generation, f"127.0.0.1:{port}")
+            plans[key] = client.wait(generation, timeout_s=30.0)
         except Exception as e:     # noqa: BLE001 — reported as a check
-            errors.append(f"{_member(i)}: {e!r}")
+            errors.append(f"{key}: {e!r}")
 
-    threads = [threading.Thread(target=member, args=(i,)) for i in members]
+    threads = [threading.Thread(target=member, args=(key, 29500 + n))
+               for n, key in enumerate(members)]
     for t in threads:
         t.start()
     for t in threads:
@@ -215,7 +276,7 @@ def run_slice_attach(root: str, enumerator: Enumerator,
     fallbacks_before = _fallback_total()
     try:
         enumerator = OneGPU(enumerator)
-        stack = _SliceStack(root, enumerator)
+        stack = _SliceStack(root, enumerator).serve()
         worker = stack.worker
         gpus = enumerator.enumerate()
         checks["node_has_a_gpu"] = bool(gpus)
@@ -259,7 +320,8 @@ def run_slice_attach(root: str, enumerator: Enumerator,
             and barrier.get("complete") is False)
 
         # 4. the four members re-federate through the barrier
-        joined = _join_all(stack.base, group, 1, everyone)
+        joined = _join_all(stack.base, group, 1,
+                           [_member(i) for i in everyone])
         plans = list(joined["plans"].values())
         report["barrier_plan"] = plans[0] if plans else None
         report["barrier_errors"] = joined["errors"]

@@ -260,9 +260,39 @@ ENV_GATEWAY_WORKERS = "TPU_GATEWAY_WORKERS"
 ENV_GATEWAY_MAX_CONNS = "TPU_GATEWAY_MAX_CONNS"
 # gRPC channels kept per worker target (round-robined per call).
 ENV_GATEWAY_WORKER_CHANNELS = "TPU_GATEWAY_WORKER_CHANNELS"
-# Planes the port's master does not run yet (ROADMAP Queue 1 item 12):
-# the master serves as the control plane's does with both set to "0".
+
+# --- Node failure domain (master/nodehealth.py, worker/drain.py) --------------
+# "1" (default): the master folds fleet scrape staleness with k8s Node
+# conditions/taints into a per-node healthy → suspect → dead state
+# machine — suspect cordons the node from NEW grants, dead fences its
+# leases and triggers slice self-healing. "0" removes the tracker
+# entirely: no node_health section on /fleetz, no new series, no fencing.
 ENV_NODE_HEALTH = "TPU_NODE_HEALTH"
+# Missed fleet scrapes before a previously-seen node turns suspect /
+# dead. Suspicion requires PRIOR liveness evidence (at least one
+# successful scrape): a node whose health port was never reachable is a
+# deploy problem, not a death — absence of telemetry must never fence.
+ENV_NODE_SUSPECT_TICKS = "TPU_NODE_SUSPECT_TICKS"
+ENV_NODE_DEAD_TICKS = "TPU_NODE_DEAD_TICKS"
+DEFAULT_NODE_SUSPECT_TICKS = 2
+DEFAULT_NODE_DEAD_TICKS = 5
+# Consecutive fresh scrapes (with clean k8s conditions) a suspect/dead
+# node must show before it is healthy again — the hysteresis that stops
+# a flapping health port from cycling cordon state per tick.
+DEFAULT_NODE_RECOVER_TICKS = 2
+# Throttle on per-node k8s Node condition/taint polls (GET nodes).
+DEFAULT_NODE_POLL_INTERVAL_S = 15.0
+# Node taints that announce imminent involuntary termination (spot /
+# preemption / scale-down): the tracker treats a tainted node as
+# cordoned and triggers proactive slice migration off it.
+TERMINATION_TAINT_KEYS = (
+    "cloud.google.com/impending-node-termination",
+    "ToBeDeletedByClusterAutoscaler",
+    "node.kubernetes.io/out-of-service",
+)
+# Failed reap attempts against a lease on a DEAD node before the broker
+# fences it instead of retrying the unreachable worker forever.
+REAP_FENCE_AFTER = 3
 
 # Request headers naming the tenant/priority (query params ?tenant= /
 # ?priority= take precedence; both fall back to namespace / "normal").

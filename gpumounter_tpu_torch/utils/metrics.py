@@ -697,6 +697,39 @@ class Registry:
             "tpumounter_fleet_nodes",
             "Workers known to the master's fleet aggregator, by state "
             "(fresh/stale)")
+        # Node failure domain (master/nodehealth.py): the master's
+        # judged health state per node — scrape staleness folded with
+        # k8s Node conditions/taints through hysteresis. 0 healthy,
+        # 1 draining (worker announced drain — cordoned, not dying),
+        # 2 suspect (cordoned from NEW grants, live leases untouched),
+        # 3 dead (leases fenced, slices repaired or torn down).
+        self.node_health_state = Gauge(
+            "tpumounter_node_health_state",
+            "Node health as the master's failure-domain tracker judges "
+            "it (0 healthy, 1 draining, 2 suspect, 3 dead)")
+        # Lease fencing (master/admission.py fence_lease): one-way
+        # evictions of leases whose worker cannot be reached — the
+        # grant is revoked cluster-side (slave pods deleted, quota
+        # freed) WITHOUT a worker detach; a zombie worker rejoining
+        # converges its gate/journal against the now-empty ground truth.
+        self.lease_fences = Counter(
+            "tpumounter_lease_fences_total",
+            "Leases fenced (evicted one-way, no worker detach) by "
+            "reason (node-dead / reap-unreachable / slice-repair / "
+            "slice-teardown)")
+        self.lease_fences.inc(0.0, reason="node-dead")
+        # Slice self-healing (master/slicetxn.py repair_group): repair
+        # transactions by outcome. repaired = the gang re-formed on a
+        # spare host under the SAME group lease; migrated = a draining
+        # member was moved off proactively; torn_down = no capacity (or
+        # budget exhausted) and the group was detached as a unit —
+        # never left half-alive; failed = the repair itself errored or
+        # a migration deferred.
+        self.slice_repairs = Counter(
+            "tpumounter_slice_repairs_total",
+            "Slice self-healing repair transactions by outcome "
+            "(repaired / migrated / torn_down / failed)")
+        self.slice_repairs.inc(0.0, outcome="repaired")
         self.lease_utilization = Gauge(
             "tpumounter_lease_utilization",
             "Mean observed duty cycle across a tenant's leased chips "

@@ -15,8 +15,10 @@ path both serve with node health and topology off.
   ``/addtpuslice``), and each ``HAConfig`` variant builds the control
   plane's ``ha``/``masters`` views.
 
-The JAX side runs under ``TPU_NODE_HEALTH=0`` and ``TPU_TOPOLOGY=0``
-(fixture ``planes_off``), the states the port serves in."""
+Both packages run under ``TPU_NODE_HEALTH=0`` and ``TPU_TOPOLOGY=0``
+(fixture ``planes_off``): the port does not run the topology plane, and
+node health (on by default in both) is held apart in
+tests/test_torch_nodehealth.py and test_torch_node_chaos.py."""
 
 import http.client
 import json
@@ -347,9 +349,9 @@ def test_ha_config_defaults_agree():
 
 
 def test_planes_the_port_leaves_off(tmp_path):
-    """The port's gateway has no node-health tracker, topology model or
-    defragmenter; /topoz is no route, as the control plane's with
-    TPU_TOPOLOGY=0 (this test's environment)."""
+    """With TPU_NODE_HEALTH=0 and TPU_TOPOLOGY=0 (this test's
+    environment) neither package's gateway has a node-health tracker, a
+    topology model or a defragmenter, and /topoz is no route."""
     out = []
     for p in BOTH:
         kube = p.mod("k8s.client").FakeKubeClient()

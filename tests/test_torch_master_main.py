@@ -131,7 +131,8 @@ def test_master_boots_attaches_detaches_and_stops(master):
     warnings = [line for line in log.splitlines()
                 if "WARNING" in line and "not ported yet" in line]
     assert len(warnings) == 1, log[-3000:]
-    assert "Queue 1 item 12c" in warnings[0]     # node health
+    assert "Queue 1 item 12c" not in warnings[0]  # node health is ported
+    assert "TPU_NODE_HEALTH" not in warnings[0]
     assert "Queue 1 item 12d" in warnings[0]     # topology
     assert "item 12b" not in warnings[0]         # no HA asked for
 
@@ -142,12 +143,12 @@ def test_master_boots_attaches_detaches_and_stops(master):
       "TPU_MASTER_SHARDS": "2"}, []),
     ({"TPU_NODE_HEALTH": "0", "TPU_TOPOLOGY": "0", "TPU_ELECTION": "1"},
      []),
-    ({"TPU_TOPOLOGY": "0"}, ["12c"]),
+    ({"TPU_TOPOLOGY": "0"}, []),
     ({"TPU_NODE_HEALTH": "0"}, ["12d"]),
-    ({}, ["12c", "12d"]),
+    ({}, ["12d"]),
 ])
 def test_unported_planes_are_named(env, expect):
-    asked = unported_planes(Settings.from_env(env), env)
+    asked = unported_planes(Settings.from_env(env))
     assert [a.rsplit("item ", 1)[1].rstrip(")") for a in asked] == expect
 
 

@@ -578,6 +578,26 @@ def test_the_slice_families_are_registered():
                 f'{{transition="{transition}"}} 0') in text, transition
 
 
+def test_the_node_health_families_are_registered():
+    """What the node failure domain records into (master/nodehealth.py,
+    the broker's fence_lease, slice self-healing), under the control
+    plane's names, types and help texts, with its pre-seeded series."""
+    from gpumounter_tpu.utils.metrics import Registry as JaxRegistry
+    from gpumounter_tpu_torch.utils.metrics import Registry
+    families = {"tpumounter_node_health_state",
+                "tpumounter_lease_fences_total",
+                "tpumounter_slice_repairs_total"}
+    port = {f.name: f for f in Registry().families()}
+    jax = {f.name: f for f in JaxRegistry().families()}
+    assert families <= set(port)
+    for name in families:
+        assert type(port[name]).__name__ == type(jax[name]).__name__, name
+        assert port[name].help == jax[name].help, name
+    text = Registry().render_text().splitlines()
+    assert 'tpumounter_lease_fences_total{reason="node-dead"} 0' in text
+    assert 'tpumounter_slice_repairs_total{outcome="repaired"} 0' in text
+
+
 def test_the_two_packages_keep_separate_registries():
     from gpumounter_tpu.utils.events import EVENTS as JAX_EVENTS
     from gpumounter_tpu.utils.flight import RECORDER as JAX_RECORDER

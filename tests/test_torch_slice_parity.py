@@ -6,9 +6,11 @@ statuses, result strings, lease groups (membership and size),
 generations, the mesh-generation annotations and the barrier payload's
 keys. Each scenario ends on its package's ``assert_slice_invariants``.
 
-The JAX side runs under ``TPU_NODE_HEALTH=0`` and ``TPU_TOPOLOGY=0``, the
-states the port serves in; its nodes carry no labels, the port's are GKE
-GPU nodes whose allocatable count equals the slice's per-host count."""
+Both packages run under ``TPU_NODE_HEALTH=0`` and ``TPU_TOPOLOGY=0`` (the
+port runs no topology plane; slice self-healing is compared in
+tests/test_torch_node_chaos.py); the control plane's nodes carry no
+labels, the port's are GKE GPU nodes whose allocatable count equals the
+slice's per-host count."""
 
 import threading
 import time

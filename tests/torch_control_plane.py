@@ -22,7 +22,8 @@ MODULES = ("actuation.agent", "actuation.cgroup", "actuation.gate",
            "allocator.topology", "device.fake", "k8s.client", "k8s.informer",
            "k8s.objects", "testing.chaos", "testing.http_apiserver",
            "master.admission", "master.discovery", "master.election",
-           "master.fleet", "master.slice", "master.slicetxn",
+           "master.fleet", "master.nodehealth", "master.slice",
+           "master.slicetxn",
            "master.store",
            "master.gateway", "master.httpfront", "master.lease",
            "master.shardring", "master.waiterindex", "testing.sim",
