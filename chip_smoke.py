@@ -155,14 +155,33 @@ Phases, each printing one JSON line on stdout:
      a teardown; host 2 restarted with no grant resurrected and healthy
      only after 2 clean scrapes; the node-death, slice and broker
      invariants, fallbacks 0, the phase under 60 s;
- 16. the kernels line (each entry names the device function and the line
+ 16. defrag — the topology plane and the defragmenter
+     (``gpumounter_tpu_torch/testing/defrag.py``): the worker of phase 11
+     on this machine's card as host 0 (a spare pod there), hosts 1-3
+     fixture nodes without the accelerator label with two GPUs each,
+     every sidecar serving ``/utilz`` and ``/topoz``, the master with a
+     1 s fleet tick and ``TPU_DEFRAG_MODE=act``; ``/topoz`` on host 0
+     lists exactly the card's nvidia-smi UUID; ``/utilz`` reads the card
+     idle from NVML, busy (duty >= 0.5, source ``nvml``, one open) while
+     a child loops ``flash_fwd`` on it for 3 s, and idle again; the fleet
+     fragmented by ``/addgpuslice`` (an idle one-GPU group on host 1, busy
+     two-GPU gangs on hosts 2 and 3) scores 0.5 with one candidate; the
+     defragmenter moves the idle group onto the card through
+     ``migrate_member`` after its hysteresis, the score reads 0.0 and the
+     verify pass charges no budget, the gangs stay, and the moved member's
+     in-pod ``flash_fwd`` runs on the card (its launch reported here, not
+     in the kernels line); the topology, defrag and slice invariants,
+     fallbacks 0, the phase under 60 s; with the GET, sampling, NVML,
+     scoring and move times;
+ 17. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
 versions); bf16 1e-2 on the normalised output and on gradients' relative
 Frobenius error, 1e-3 on m and lse. Exits non-zero, without the device
 line, when there is no GPU, when the package is missing, or when any phase
-failed (then the last line is ``{"ok": false, "failed": [...]}``).
+failed (then the last line is ``{"ok": false, "failed": [...]}``, and the
+last line of stderr names each failed phase's false checks or error).
 """
 
 from __future__ import annotations
@@ -1449,9 +1468,11 @@ def node_attach(card: str) -> dict:
             box.nodes() == {"null": (1, 3)} and gate_pairs() == set()
             and sorted(deny) == sorted(f"c {a}:{b} rw" for a, b in granted))
 
-        # a container the runtime gave a GPU at creation keeps the
-        # companions when the hot-attached card leaves
-        held = [("/dev/nvidia0", consts.NVIDIA_MAJOR, 0)] + [
+        # a container the runtime gave another GPU at creation keeps the
+        # companions when the hot-attached card leaves (the other GPU's
+        # minor is never the card's: the card may be /dev/nvidia0)
+        other = 0 if gpu.minor else 1
+        held = [(f"/dev/nvidia{other}", consts.NVIDIA_MAJOR, other)] + [
             (name, *majmin) for name, majmin in companions.items()]
         kept = node.container("workload-held", [idle_held.pid], held=held)
         mounter.mount_chips(kept.pod, gpus, gpus)
@@ -1626,6 +1647,29 @@ def node_failure(card: str) -> dict:
             "ok": all(checks.values())}
 
 
+DEFRAG_DIR = os.path.join(REPO, "build", "defrag")
+
+
+def defrag(card: str) -> dict:
+    """A fragmented fleet consolidated onto this machine's card by the
+    defragmenter, with the usage proof on the card beforehand and the
+    in-pod proof on it after the move (``testing/defrag.py``). The card's
+    UUID must be one nvidia-smi names."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.defrag import cuda_load, run_defrag
+    from gpumounter_tpu_torch.testing.master_attach import cuda_proof
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_defrag(DEFRAG_DIR, PyEnumerator(HostPaths()), cuda_proof,
+                        cuda_load)
+    checks = report["checks"]
+    checks["card_is_an_nvidia_smi_uuid"] = (
+        report.get("card", {}).get("uuid") in smi_uuids)
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1658,6 +1702,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     rates = (perf.chip_peak_tflops(kind), perf.chip_hbm_tb_per_s(kind))
     failed: list[str] = []
+    why: dict[str, list[str]] = {}      # phase -> its false checks or error
     kernel_rows: dict[str, dict] = {}
     launches: dict[str, dict] = {}
 
@@ -1671,6 +1716,11 @@ def main() -> int:
         report["seconds"] = time.perf_counter() - t0
         if not report.get("ok"):
             failed.append(name)
+            error = str(report.get("error", "")).strip().splitlines()
+            checks = report.get("checks")
+            why[name] = [k for k, v in (checks if isinstance(checks, dict)
+                                        else {}).items()
+                         if not v] or error[-1:] or ["not ok"]
         emit(name, **report)
 
     def environment():
@@ -1834,6 +1884,7 @@ def main() -> int:
     phase("slice_attach", lambda: slice_attach(card))
     phase("ha_attach", lambda: ha_attach(card))
     phase("node_failure", lambda: node_failure(card))
+    phase("defrag", lambda: defrag(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")
@@ -1860,6 +1911,7 @@ def main() -> int:
         count = launches.get(path, {}).get(counter, 0)
         if count == 0 and "kernels" not in failed:
             failed.append("kernels")
+            why["kernels"] = ["a kernel of the main path never launched"]
         line.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
             "kernel": func, "source_line": definition_line(src, func),
@@ -1874,7 +1926,8 @@ def main() -> int:
           flush=True)
     print(nvidia_smi("name,power.limit"), flush=True)
     if failed:
-        print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        print(f"chip_smoke: failed phases: {failed}; why: {why}",
+              file=sys.stderr)
         print(json.dumps({"ok": False, "failed": failed}), flush=True)
         return 1
     print(json.dumps({"ok": True, "device": {

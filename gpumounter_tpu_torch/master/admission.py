@@ -50,10 +50,6 @@ families: ``admission_decisions_total{tenant,outcome}``,
    intent is rehydrated: leases merged, waiters adopted and re-run under
    their original request ids.
 
-This is the port of :mod:`gpumounter_tpu.master.admission`, with the
-planes the port does not run yet in the off state the control plane
-defines for them: no defragmenter (ROADMAP Queue 1 item 12d).
-
 6. **Node failure domain** — with the master's node-health tracker bound
    (``bind_node_health``) a lease whose node is judged dead is fenced
    (``fence_lease``: its slave pods are deleted cluster-side, no worker
@@ -61,6 +57,12 @@ defines for them: no defragmenter (ROADMAP Queue 1 item 12d).
    (``request_repair``), the tick re-notifies dead nodes that still
    anchor leases, and the reaper fences an expired lease on a dead node
    instead of retrying its worker forever.
+
+7. **Defragmentation** — with the fleet defragmenter bound
+   (``bind_defrag``), shard rehydration hands it the dead leader's
+   journaled defrag moves to adopt or abort.
+
+This is the port of :mod:`gpumounter_tpu.master.admission`.
 """
 
 from __future__ import annotations
@@ -253,9 +255,9 @@ class AttachBroker:
         # tenants ever exported on tenant_chips_idle, so a tenant whose
         # idle leases resolved resets to 0 instead of freezing
         self._idle_tenants: set[str] = set()
-        # The fleet defragmenter hands shard rehydration its journaled
-        # moves in the control plane; the port has none (ROADMAP Queue 1
-        # item 12d), so the rehydration's defrag branch stays unreached.
+        # Fleet defragmenter (bind_defrag): shard rehydration hands it
+        # journaled defrag-move records to adopt or abort. None = no
+        # actuator (TPU_DEFRAG_MODE=0).
         self._defrag = None
         # Node failure domain (master/nodehealth.py, bind_node_health):
         # node -> state ("healthy"/"draining"/"suspect"/"dead"). None =
@@ -319,6 +321,13 @@ class AttachBroker:
         group-lease expiry and preemption detach whole slices through
         it, and shard rehydration hands it stranded txn records."""
         self._slice = manager
+
+    def bind_defrag(self, actuator) -> None:
+        """Wire the fleet defragmenter (master/defrag.py): shard
+        rehydration hands it the dead leader's journaled defrag moves,
+        so every in-flight migration is adopted (grow landed — finish
+        the detach) or aborted (group intact at the old placement)."""
+        self._defrag = actuator
 
     def bind_utilization(self, activity_fn) -> None:
         """Wire the fleet aggregator's per-lease activity feed

@@ -1,7 +1,5 @@
 """Master-side fleet aggregator: one cluster view over every worker (the
-port of :mod:`gpumounter_tpu.master.fleet`, with the node-health feed and
-without the topology and defragmenter hooks: those planes are not ported
-yet, and the view is the control plane's with ``TPU_TOPOLOGY=0``).
+port of :mod:`gpumounter_tpu.master.fleet`).
 
 The paper's master/worker split leaves the only ground truth about
 actuation in per-node processes: the workers' ``/tracez``/``/agentz``/
@@ -133,7 +131,8 @@ class FleetAggregator:
     def __init__(self, targets_fn, usage_fn=None, slo=None,
                  tick_interval_s: float = DEFAULT_TICK_INTERVAL_S,
                  scrape_timeout_s: float = SCRAPE_TIMEOUT_S,
-                 ha_fn=None, lease_lookup=None, node_health=None):
+                 ha_fn=None, lease_lookup=None, node_health=None,
+                 topology=None):
         self.targets_fn = targets_fn
         self.usage_fn = usage_fn or (lambda: {})
         self.slo = slo
@@ -145,6 +144,17 @@ class FleetAggregator:
         # peers from the election lock records, store lag) — the /fleetz
         # section that makes a stuck failover visible in one command.
         self.ha_fn = ha_fn
+        # Fleet topology plane (master/topology.py): when bound, every
+        # tick scrapes /topoz beside /utilz and feeds the model, whose
+        # scoring then runs inside this tick (fragmentation, stranded
+        # GPUs, contiguity, defrag report, global tenant rollup). None =
+        # plane off (TPU_TOPOLOGY=0) — no scrape, no /fleetz sections, no
+        # series.
+        self.topology = topology
+        # Fleet defragmenter (master/defrag.py, bind_defrag): when bound,
+        # /fleetz carries its plans/recent-moves/budget section. None =
+        # actuator off (TPU_DEFRAG_MODE=0).
+        self.defrag = None
         # Node failure domain (master/nodehealth.py): when bound, every
         # tick's per-node scrape outcome (fresh/missed + the healthz
         # text, which a draining worker changes) feeds the tracker's
@@ -209,6 +219,8 @@ class FleetAggregator:
             REGISTRY.lease_utilization.set(0.0, tenant=tenant)
         if self.slo is not None:
             self.slo.reset()
+        if self.topology is not None:
+            self.topology.withdraw()
 
     def _run(self) -> None:
         while not self._stop.wait(self.tick_interval_s):
@@ -300,6 +312,10 @@ class FleetAggregator:
             REGISTRY.fleet_nodes.set(fresh, state="fresh")
             REGISTRY.fleet_nodes.set(len(states) - fresh, state="stale")
             self._export_utilization_gauges()
+            if self.topology is not None:
+                # all topology scoring runs HERE, on the tick thread —
+                # the scrape threads only ingested raw /topoz payloads
+                self.topology.tick(live_nodes=set(states))
         # a tick outliving stop() must not re-export burns after
         # stop()'s slo.reset() zeroed them (manual tick()s run with the
         # flag clear, so rigs without the loop still get SLO exports)
@@ -436,6 +452,10 @@ class FleetAggregator:
         paths = [("/utilz", self._apply_utilz),
                  ("/journalz", self._apply_journalz),
                  ("/cachez", self._apply_cachez)]
+        if self.topology is not None:
+            # topology plane on: /topoz rides the same budget — with it
+            # off (TPU_TOPOLOGY=0) the request never leaves this master
+            paths.append(("/topoz", self._apply_topoz))
         for path, apply in paths:
             if time.monotonic() >= budget:
                 break               # keep the prior tick's numbers
@@ -559,6 +579,13 @@ class FleetAggregator:
             # last utilization on /metrics: zeroed ONCE, then forgotten
             REGISTRY.lease_utilization.set(0.0, tenant=tenant)
 
+    def bind_defrag(self, actuator) -> None:
+        """Wire the defrag actuator (master/defrag.py) so /fleetz carries
+        its ``defrag`` section. A binder (not a constructor argument)
+        because the actuator consumes this aggregator's activity feed —
+        it is built after it."""
+        self.defrag = actuator
+
     @staticmethod
     def _apply_journalz(record: _NodeRecord, payload: dict) -> None:
         if isinstance(payload, dict) and "backlog" in payload:
@@ -572,6 +599,16 @@ class FleetAggregator:
                      for s in payload.get("scopes") or []]
         if staleness:
             record.cache_staleness_s = round(max(staleness), 1)
+
+    def _apply_topoz(self, record: _NodeRecord, payload: dict) -> None:
+        """Hand the raw /topoz payload to the topology model (store only;
+        ALL scoring runs later on the tick thread). A worker answering
+        enabled=false (TPU_TOPOLOGY=0 there) withdraws the node — a
+        frozen pre-rollout map rendered live is worse than none."""
+        if not isinstance(payload, dict) or not payload.get("enabled"):
+            self.topology.ingest(record.node, None)
+            return
+        self.topology.ingest(record.node, payload)
 
     # -- the /fleetz view ------------------------------------------------------
 
@@ -607,6 +644,19 @@ class FleetAggregator:
                 r.utilz is not None for r in self._nodes.values())
         if has_util:
             out["utilization"] = self._utilization_view()
+        if self.topology is not None:
+            # sections only once a tick actually scored ingested /topoz
+            # data: with TPU_TOPOLOGY=0 anywhere (this master, or every
+            # worker), /fleetz stays byte-for-byte the prior payload
+            topo = self.topology.fleetz_section()
+            if topo is not None:
+                out["topology"] = topo
+            tenants_global = self.topology.global_tenants()
+            if tenants_global is not None:
+                out["global_tenants"] = tenants_global
+        if self.defrag is not None:
+            # absent entirely under TPU_DEFRAG_MODE=0
+            out["defrag"] = self.defrag.fleetz_section()
         if self.node_health is not None:
             # absent entirely under TPU_NODE_HEALTH=0
             out["node_health"] = self.node_health.snapshot()

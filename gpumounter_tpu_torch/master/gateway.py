@@ -40,9 +40,14 @@ suspect, draining or dead node answers ``/addgpu`` with 503
 ``NodeCordoned``, a dead node's leases are fenced and its slice groups
 repaired onto spare pods, and a draining node's slice members migrate.
 
-The topology plane and the defragmenter are not ported yet; they are in
-the off state the control plane defines (as ``TPU_TOPOLOGY=0``:
-``/topoz`` is no route).
+With the topology plane on (the default; ``TPU_TOPOLOGY=0`` removes it)
+the fleet tick scrapes each worker's ``/topoz`` into ``FleetTopology``
+(master/topology.py): ``GET /topoz`` and the ``/fleetz`` ``topology`` and
+``global_tenants`` sections serve its fragmentation score, defrag
+candidates and cross-shard tenant rollup. The defragmenter
+(master/defrag.py, ``TPU_DEFRAG_MODE``: ``plan`` by default, ``act``,
+``0``) plans over those candidates and, in ``act`` mode, moves an idle
+slice member through ``SliceTxnManager.migrate_member``.
 """
 
 from __future__ import annotations
@@ -158,13 +163,14 @@ _PLAIN_ROUTES = {"/healthz": "healthz", "/version": "version",
                  "/removegpuslice": "removegpuslice",
                  "/slice/resize": "sliceresize",
                  "/slice/barrier": "slicebarrier",
-                 "/slicez": "slicez"}
+                 "/slicez": "slicez",
+                 "/topoz": "topoz"}
 # Pure introspection requests (and renew heartbeats) would drown the
 # mount traces in the ring buffer; they are measured (histogram) but not
 # stored.
 _UNTRACED_ROUTES = {"healthz", "version", "tracez", "brokerz", "eventz",
                     "fleetz", "renew", "slicez", "slicebarrier",
-                    "unknown"}
+                    "topoz", "unknown"}
 
 
 def _route_label(path: str) -> str:
@@ -236,8 +242,8 @@ class MasterGateway:
         # NEW grants; dead fences its leases (one-way eviction through
         # broker.fence_lease) and triggers slice self-healing.
         # TPU_NODE_HEALTH=0 removes the tracker entirely — no /fleetz
-        # section, no series, no fencing. (The topology plane's
-        # node_excluded_fn binds the tracker's cordon once it lands.)
+        # section, no series, no fencing. The topology plane and the
+        # defragmenter bind the tracker's cordon as node_excluded_fn.
         from gpumounter_tpu_torch.master import nodehealth
         self.nodehealth = None
         if nodehealth.enabled():
@@ -270,6 +276,26 @@ class MasterGateway:
                            "using 1s", consts.ENV_FLEET_INTERVAL_S,
                            fleet_interval)
             fleet_interval = 1.0
+        # Fleet topology & fragmentation plane (master/topology.py): the
+        # fleet tick scrapes each worker's /topoz into this model and
+        # scores it (fragmentation, stranded GPUs, contiguity, defrag
+        # candidates, the cross-shard tenant rollup). TPU_TOPOLOGY=0
+        # removes the model entirely — no scrape, no /topoz route, no
+        # /fleetz sections, no series.
+        from gpumounter_tpu_torch.master import topology as fleettopo
+        self.topology = None
+        if fleettopo.enabled():
+            self.topology = fleettopo.FleetTopology(
+                leases_fn=self.broker.leases.leases,
+                groups_fn=self.broker.leases.groups,
+                local_usage_fn=self.broker.leases.usage,
+                peers_fn=self._topology_peers,
+                replica=self.ha.replica,
+                # cordoned/draining/suspect nodes are no migration
+                # source: the candidate report prunes them each tick
+                node_excluded_fn=(self.nodehealth.cordoned
+                                  if self.nodehealth is not None
+                                  else None))
         self.fleet = FleetAggregator(
             targets_fn=self._fleet_targets,
             usage_fn=self.broker.leases.usage,
@@ -279,11 +305,47 @@ class MasterGateway:
             # joins scraped chip utilization to the tenant holding the
             # grant (/fleetz per-tenant utilization + idle-lease list)
             lease_lookup=self.broker.leases.get,
-            node_health=self.nodehealth)
+            node_health=self.nodehealth,
+            topology=self.topology)
         # ...and the reverse direction: the broker tick reads the
         # fleet's observed per-lease activity to mark leases idle past
         # TPU_IDLE_LEASE_S (reclaim signal + preemption preference).
         self.broker.bind_utilization(self.fleet.lease_activity)
+        # Fleet defragmenter (master/defrag.py): the optimizer tick over
+        # the topology plane's candidate report — "plan" (the default)
+        # journals and reports, "act" moves idle slice members through
+        # the repair seam, "0" removes it. Needs the topology plane.
+        from gpumounter_tpu_torch.master import defrag as defrag_mod
+        self.defrag = None
+        if self.topology is not None and defrag_mod.enabled():
+            def _env_num(name, default, cast):
+                try:
+                    return cast(os.environ.get(name, default))
+                except ValueError:
+                    return cast(default)
+            self.defrag = defrag_mod.DefragActuator(
+                slices=self.slices,
+                view_fn=self.topology.snapshot,
+                activity_fn=self.fleet.lease_activity,
+                node_excluded_fn=(self.nodehealth.cordoned
+                                  if self.nodehealth is not None
+                                  else None),
+                store=self.broker.store,
+                mode=defrag_mod.mode(),
+                hysteresis_ticks=_env_num(
+                    consts.ENV_DEFRAG_HYSTERESIS_TICKS,
+                    consts.DEFAULT_DEFRAG_HYSTERESIS_TICKS, int),
+                idle_duty_max=_env_num(
+                    consts.ENV_DEFRAG_IDLE_DUTY_MAX,
+                    consts.DEFAULT_DEFRAG_IDLE_DUTY_MAX, float),
+                max_inflight=_env_num(
+                    consts.ENV_DEFRAG_MAX_INFLIGHT,
+                    consts.DEFAULT_DEFRAG_MAX_INFLIGHT, int),
+                budget=_env_num(consts.ENV_DEFRAG_BUDGET,
+                                consts.DEFAULT_DEFRAG_BUDGET, int),
+                tick_interval_s=fleet_interval)
+            self.fleet.bind_defrag(self.defrag)
+            self.broker.bind_defrag(self.defrag)
         # gRPC target "ip:port" -> base URL of that worker's health/tracez
         # HTTP endpoint. The default follows the worker's fixed convention
         # (health on grpc_port + 1, worker/main.py HEALTH_PORT_OFFSET);
@@ -685,6 +747,14 @@ class MasterGateway:
                 limit = 64
             return 200, self.fleet.snapshot(
                 events_limit=max(1, min(512, limit)))
+        if p == "/topoz":
+            if method != "GET":
+                return self._method_not_allowed("GET", method, p)
+            if self.topology is None:
+                # TPU_TOPOLOGY=0: the route does not exist — the
+                # pre-topology 404 payload
+                return 404, {"result": "NoSuchRoute", "message": path}
+            return 200, self.topology.snapshot()
         return 404, {"result": "NoSuchRoute", "message": path}
 
     # -- /tracez: trace introspection + master↔worker stitching ----------------
@@ -1249,6 +1319,19 @@ class MasterGateway:
             view["store"] = self.broker.store.snapshot()
         return view
 
+    def _topology_peers(self) -> dict:
+        """Peer master shards for the global tenant rollup, straight from
+        the election's lock records ({shard: {holder, url, fence,
+        expired}}). No election = no peers = the rollup equals this
+        shard's own usage."""
+        if self.election is None:
+            return {}
+        try:
+            return self.election.leaders()
+        except Exception:    # noqa: BLE001 — rollup degrades, never dies
+            logger.exception("peer leader listing failed")
+            return {}
+
     def _add(self, namespace: str, pod_name: str, gpu_num: int,
              entire: bool, rid: str = "-", query: dict | None = None,
              ctx: dict | None = None) -> tuple[int, dict]:
@@ -1503,6 +1586,8 @@ class MasterGateway:
         # it exported).
         self.broker.start()
         self.fleet.start()
+        if self.defrag is not None:
+            self.defrag.start()
         # HA: the election loop acquires/renews this replica's shard
         # locks; its lifetime is tied to the server's like the loops
         # above (a stopped master releases nothing — the locks simply
@@ -1520,6 +1605,8 @@ class MasterGateway:
         orig_shutdown = server.shutdown
 
         def shutdown_with_loops():
+            if self.defrag is not None:
+                self.defrag.stop()
             self.fleet.stop()
             self.broker.stop()
             if self.election is not None:

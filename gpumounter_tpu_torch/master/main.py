@@ -3,11 +3,10 @@ port of :mod:`gpumounter_tpu.master.main`).
 
 Run as: ``python -m gpumounter_tpu_torch.master.main``. The environment is
 the control plane's, the HA plane included (``TPU_MASTER_SHARDS``,
-``TPU_ELECTION``, ``TPU_INTENT_STORE``, ...; all off by default) and node
-health (``TPU_NODE_HEALTH``, on by default). Where the environment asks for
-the plane that is not ported yet (the topology plane, ``TPU_TOPOLOGY`` not
-set to ``0``), it logs one WARNING naming the ROADMAP item and serves as
-the control plane does with that plane off.
+``TPU_ELECTION``, ``TPU_INTENT_STORE``, ...; all off by default), node
+health (``TPU_NODE_HEALTH``), the topology plane (``TPU_TOPOLOGY``) and
+the defragmenter (``TPU_DEFRAG_MODE``, ``plan`` by default), each on by
+default.
 """
 
 from __future__ import annotations
@@ -19,23 +18,12 @@ from gpumounter_tpu_torch.master.admission import AttachBroker, BrokerConfig
 from gpumounter_tpu_torch.master.discovery import WorkerDirectory
 from gpumounter_tpu_torch.master.gateway import MasterGateway
 from gpumounter_tpu_torch.master.shardring import HAConfig
-from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.config import Settings
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.worker.grpc_server import (WorkerClient,
                                                      load_tls_config)
 
 logger = get_logger("master.main")
-
-
-def unported_planes(settings: Settings) -> list[str]:
-    """The planes the environment asks for that the port's master does not
-    run yet, each with its ROADMAP item."""
-    asked = []
-    if settings.topology_enabled:
-        asked.append(f"topology and defrag ({consts.ENV_TOPOLOGY}; "
-                     "Queue 1 item 12d)")
-    return asked
 
 
 def main() -> None:
@@ -52,10 +40,6 @@ def main() -> None:
     # TPU_LEASE_TTL_S, TPU_QUEUE_TIMEOUT_S (... all default-off). serve()
     # starts its lease-expiry loop.
     broker = AttachBroker(kube, BrokerConfig.from_settings(settings))
-    asked = unported_planes(settings)
-    if asked:
-        logger.warning("not ported yet (ROADMAP): %s; the master serves "
-                       "with these planes off", "; ".join(asked))
     # HA plane: TPU_MASTER_SHARDS / TPU_ELECTION / TPU_INTENT_STORE —
     # all default-off = single-master semantics (docs/guide/HA.md).
     ha = HAConfig.from_settings(settings)

@@ -845,6 +845,75 @@ class SliceTxnManager:
                 "generation": generation, "added": list(spares),
                 "shrink_deferred": not ok}
 
+    # -- fleet defragmentation (master/defrag.py is the planner) ---------------
+
+    def migrate_member(self, group: str, member: tuple[str, str],
+                       rid: str) -> dict:
+        """The defragmenter's ONE entry into actuation
+        (tests/test_torch_defrag_lint.py pins that every move crosses
+        here): relocate a single idle member onto a spare host as a
+        grow-first migration riding the repair machinery — the same
+        crash-safe slice txn, the same defer-never-degrade semantics, and
+        the same per-group exclusivity guard as ``repair_group`` (a repair
+        in flight wins; defrag yields and re-plans later)."""
+        member = tuple(member)
+        with self._lock:
+            if group in self._repairing:
+                return {"outcome": "deferred", "group": group,
+                        "why": "repair in flight"}
+            self._repairing.add(group)
+        try:
+            members = self.broker.leases.group_leases(group)
+            moving = [m for m in members
+                      if (m.namespace, m.pod) == member]
+            if not moving:
+                return {"outcome": "gone", "group": group}
+            survivors = [(m.namespace, m.pod) for m in members
+                         if (m.namespace, m.pod) != member]
+            info = self._ensure_group_info(group, members)
+            gpus = int(info.get("gpus_per_host")
+                       or members[0].chips or 1)
+            return self._migrate(group, moving, survivors, gpus,
+                                 members[0].tenant,
+                                 members[0].priority, "defrag", rid)
+        finally:
+            with self._lock:
+                self._repairing.discard(group)
+
+    def finish_member_detach(self, group: str, member: tuple[str, str],
+                             rid: str) -> bool:
+        """Complete an ADOPTED defrag move whose grow already landed: a
+        clean detach of the superseded member plus the generation bump
+        — the tail ``_migrate`` would have run had its master survived.
+        Returns False when the member could not leave yet (busy device,
+        or a repair holds the group); the group stays at full strength
+        either way and a later tick re-judges it."""
+        member = tuple(member)
+        with self._lock:
+            if group in self._repairing:
+                return False
+            self._repairing.add(group)
+        try:
+            members = self.broker.leases.group_leases(group)
+            if member not in [(m.namespace, m.pod) for m in members]:
+                return True     # already gone — nothing left to finish
+            info = self._ensure_group_info(group, members)
+            gpus = int(info.get("gpus_per_host")
+                       or members[0].chips or 1)
+            ok, results = self.detach_members(
+                [member], cause=f"defrag-adopt:{rid}", force=False,
+                rid=rid)
+            for result in results:
+                if result.result in ROLLBACK_CLEAN:
+                    self.broker.release(result.namespace, result.pod)
+            target = [(m.namespace, m.pod)
+                      for m in self.broker.leases.group_leases(group)]
+            self._bump_generation(group, target, gpus, rid)
+            return ok
+        finally:
+            with self._lock:
+                self._repairing.discard(group)
+
     def _teardown_group(self, group: str, survivors:
                         list[tuple[str, str]], rid: str, cause: str,
                         reason: str) -> dict:

@@ -5,9 +5,11 @@ connection, and the :class:`Fault` rules a :class:`FaultInjector` applies
 at the fakes' seams (``FakeKubeClient.faults``, ``HttpApiserver.faults``),
 the broker contract :func:`assert_broker_invariants` and the multi-host
 slice contract :func:`assert_slice_invariants`, each with its intent-store
-and node-death clauses (:func:`assert_node_death_invariants`). The fault
-plans, crash points, chaos rigs and the topology and defrag clauses arrive
-with ROADMAP Queue 1 items 12d and 12e.
+and node-death clauses (:func:`assert_node_death_invariants`), and the
+topology plane's and the defragmenter's contracts
+(:func:`assert_topology_invariants`, :func:`assert_defrag_invariants`).
+The fault plans, crash points and chaos rigs arrive with ROADMAP Queue 1
+item 12e.
 """
 
 from __future__ import annotations
@@ -201,6 +203,111 @@ def assert_node_death_invariants(broker, health) -> None:
                        for m in members), \
                 f"group {group} had fenced members but still holds " \
                 f"leases on unhealthy nodes"
+
+
+def assert_topology_invariants(topology_section: dict) -> None:
+    """Internal-consistency contract of a /fleetz ``topology`` section
+    (any plan that reads one can call this on every observation):
+
+    1. **Score arithmetic holds**: the fleet score is exactly
+       1 − largest/free (0 with no free chips), and the fleet
+       largest/free/stranded figures are the max/sum of the per-node
+       figures — the section is one tick's coherent computation, not a
+       mix of ticks.
+    2. **Per-node sanity**: largest schedulable block never exceeds the
+       node's free count; stranded never exceeds free; a node's free
+       components sum to its free count.
+    3. **Actionable candidates only**: every defrag candidate's gain is
+       positive — a report naming a move that merges nothing is noise
+       the future optimizer would chase.
+    """
+    nodes = topology_section.get("nodes") or {}
+    free = sum(n["free"] for n in nodes.values())
+    largest = max((n["largest_free_block"] for n in nodes.values()),
+                  default=0)
+    stranded = sum(n["stranded"] for n in nodes.values())
+    assert topology_section["free"] == free, topology_section
+    assert topology_section["largest_free_block"] == largest, \
+        topology_section
+    assert topology_section["stranded"] == stranded, topology_section
+    expected = round(1.0 - largest / free, 4) if free else 0.0
+    assert abs(topology_section["score"] - expected) < 1e-6, \
+        f"score {topology_section['score']} != {expected} " \
+        f"(largest {largest} / free {free})"
+    for node, n in sorted(nodes.items()):
+        assert 0 <= n["largest_free_block"] <= n["free"], (node, n)
+        assert 0 <= n["stranded"] <= n["free"], (node, n)
+        assert sum(n.get("free_components") or []) == n["free"], (node, n)
+    for cand in topology_section.get("defrag_candidates") or []:
+        assert cand["gain"] > 0, cand
+        assert cand["node"] in nodes, cand
+
+
+def assert_defrag_invariants(broker, store=None, actuator=None) -> None:
+    """The defragmenter's safety contract (master/defrag.py), checkable
+    at ANY settled instant of a chaos plan:
+
+    1. **No move on a busy lease**: every lease the defragmenter names —
+       a journaled record or a standing plan — is idle (the broker's
+       ``idle_since_unix`` signal every interlock gates on). A busy
+       lease in the plan set means an interlock was skipped.
+    2. **No group below strength mid-move**: a group named by any defrag
+       record holds AT LEAST its recorded membership — grow-first means
+       the old member leaves only after the new one landed, so a
+       shrunken group under an open record is a degrading move.
+    3. **No orphaned journal records**: ``planned`` records correspond
+       to standing plans in the live actuator; ``acting`` records exist
+       only while a move (or its failover adoption) is genuinely in
+       flight. With no actuator (``TPU_DEFRAG_MODE=0`` or a plan that
+       never enabled one), the journal must be empty — a record nobody
+       will ever adopt is leaked intent. No record is torn.
+    """
+    records = []
+    if store is not None:
+        for shard in range(store.ring.shards):
+            shard_records, torn = store.rehydrate_defrag_moves(shard)
+            assert torn == 0, \
+                f"shard {shard}: {torn} torn defrag record(s)"
+            records.extend(shard_records)
+    if actuator is None:
+        assert not records, \
+            f"{len(records)} defrag record(s) journaled with no " \
+            f"actuator to ever adopt them: " \
+            f"{[(r.group, r.pod, r.state) for r in records]}"
+        return
+    with actuator._lock:
+        plans = {(p["namespace"], p["group"], p["pod"])
+                 for p in actuator._plans.values()}
+        inflight = actuator._inflight
+        adopting = set(actuator._adopting)
+    named = [(r.namespace, r.pod, r.group, r.hosts) for r in records]
+    for record in records:
+        key = (record.namespace, record.group, record.pod)
+        if record.state == "planned":
+            assert key in plans, \
+                f"ORPHANED defrag record: planned move {key} has no " \
+                f"standing plan in the actuator"
+        else:
+            assert inflight > 0 or adopting, \
+                f"ORPHANED defrag record: acting move {key} with no " \
+                f"move in flight and no adoption running"
+    groups = broker.leases.groups()
+    for namespace, pod, group, hosts in named:
+        members = groups.get(group) or []
+        if members and hosts:
+            assert len(members) >= hosts, \
+                f"group {group} BELOW STRENGTH mid-move: " \
+                f"{len(members)} member(s), record says {hosts}"
+    with actuator._lock:
+        standing = [dict(p) for p in actuator._plans.values()]
+    for plan in standing + [
+            {"namespace": r.namespace, "pod": r.pod} for r in records]:
+        lease = broker.leases.get(plan["namespace"], plan["pod"])
+        if lease is None:
+            continue    # already moved or released — nothing to judge
+        assert lease.idle_since_unix is not None, \
+            f"defrag names BUSY lease {plan['namespace']}/" \
+            f"{plan['pod']} (no idle signal): an interlock was skipped"
 
 
 def assert_broker_invariants(broker, sim, store=None,

@@ -17,8 +17,8 @@ puts a real gRPC worker and a real HTTP master in front of it;
 the multi-host slice topology; ``MultiMasterStack`` puts N HA masters
 (election, intent store, shard forwarding) over one cluster and one
 worker. ``MultiNodeStack`` carries the node-failure primitives (health
-sidecars, spare pods, ``kill_node``/``restart_node``); its fragmentation
-primitive arrives with the defragmenter (ROADMAP Queue 1 item 12d).
+sidecars, spare pods, ``kill_node``/``restart_node``) and the
+fragmentation primitive the defragmenter's suite drives (``fragment``).
 """
 
 from __future__ import annotations
@@ -238,8 +238,11 @@ class WorkerRig:
     "procroot" (real ProcRootActuator with fake device nodes under
     ``<proc_root>/<pid>/root/dev`` — the bench/verify configuration).
 
-    The options are the control plane's rig's, less ``usage``/``topo``
-    (the usage sampler and topology view are not ported yet).
+    ``usage="fake"`` wires a usage sampler over a
+    :class:`~gpumounter_tpu_torch.collector.usage.FakeUsageProbe` tests
+    script (``rig.usage_probe.set_duty``); ``usage="gpu"`` the real
+    :class:`~gpumounter_tpu_torch.collector.usage.GpuUsageProbe` (NVML,
+    else open-fd detection). ``topo=True`` wires the /topoz view.
     """
 
     def __init__(self, fake_host, n_chips=4, pid=4242, actuator="recording",
@@ -248,7 +251,8 @@ class WorkerRig:
                  kubelet_lag_s=0.0, warm_pool: dict[str, int] | None = None,
                  informer: bool = False, agent: bool = False,
                  gate=False, grpc_workers: int | None = None,
-                 grpc_async: bool | None = None):
+                 grpc_async: bool | None = None, usage=False,
+                 usage_interval_s: float = 0.25, topo: bool = False):
         from gpumounter_tpu_torch.actuation.cgroup import CgroupDeviceController
         from gpumounter_tpu_torch.actuation.mount import GPUMounter
         from gpumounter_tpu_torch.actuation.nsenter import (ProcRootActuator,
@@ -374,6 +378,44 @@ class WorkerRig:
                                        self.sim.kube, self.sim.settings,
                                        pool=self.pool,
                                        journal=self.journal)
+        # Usage sampler (collector/usage.py). The loop is NOT started —
+        # tests drive ``sample_once()`` for determinism; stacks that
+        # serve /utilz live call ``rig.usage.start()``.
+        self.usage = None
+        self.usage_probe = None
+        if usage:
+            from gpumounter_tpu_torch.collector.usage import (
+                ChipUsageSampler, FakeUsageProbe, GpuUsageProbe,
+                slave_owner_resolver)
+            self.usage_probe = (GpuUsageProbe(fake_host, self.sim.enumerator)
+                                if usage == "gpu" else FakeUsageProbe())
+            self.usage = ChipUsageSampler(
+                self.sim.collector, self.usage_probe,
+                interval_s=usage_interval_s,
+                pool_namespace=self.sim.settings.pool_namespace,
+                node_name=node,
+                owners_fn=slave_owner_resolver(
+                    self.reads, self.sim.settings.pool_namespace,
+                    service=self.service),
+                refresh_inventory=True)
+        # Topology snapshot view (collector/topology.py): the /topoz
+        # payload builder over this rig's collector — labels from the
+        # sim's node object, ownership resolved like the sampler's.
+        # Snapshot-only; nothing to start or stop.
+        self.topo = None
+        if topo:
+            from gpumounter_tpu_torch.collector.topology import (
+                NodeTopologyView, node_topology_source)
+            from gpumounter_tpu_torch.collector.usage import \
+                slave_owner_resolver
+            self.topo = NodeTopologyView(
+                self.sim.collector,
+                node_name=node,
+                topology_fn=node_topology_source(self.sim.kube, node),
+                owners_fn=slave_owner_resolver(
+                    self.reads, self.sim.settings.pool_namespace,
+                    service=self.service),
+                pool_namespace=self.sim.settings.pool_namespace)
 
     def provision_container(self, pod: objects.Pod,
                             pid: int | None = None) -> dict[str, int]:
@@ -432,6 +474,8 @@ class WorkerRig:
             time.sleep(0.05)
 
     def close(self) -> None:
+        if self.usage is not None:
+            self.usage.stop()
         if self.agent is not None:
             self.agent.stop()
         if self.informer is not None:
@@ -481,7 +525,8 @@ class LiveStack:
         # server only.
         self.health_server = start_health_server(
             0, journal=rig.service.journal, cache=rig.service.reads,
-            agent=rig.agent, gate=rig.gate, pool=rig.pool)
+            agent=rig.agent, gate=rig.gate, pool=rig.pool, usage=rig.usage,
+            topo=rig.topo)
         health_port = self.health_server.server_port
         self.health_base = f"http://127.0.0.1:{health_port}"
         # ``shared_kube=True``: the master reads the SAME fake cluster the
@@ -684,7 +729,12 @@ class MultiNodeStack:
     GKE node (``cloud.google.com/gke-accelerator: nvidia-h100-80gb``,
     ``n_chips`` allocatable ``nvidia.com/gpu``) holding pod
     ``workload-i``; the master reads the node objects, so a slice's
-    ``gpusPerHost`` must be the whole host.
+    ``gpusPerHost`` must be the whole host. ``accelerator=None`` builds
+    label-less nodes instead, as the control plane's stack does: no group
+    rule applies, and a slice member may take part of its host (what the
+    defragmenter's suite fragments). ``usage``/``topo`` are
+    :class:`WorkerRig`'s options for every node; with ``health=True`` the
+    sidecars serve them.
 
     Node failure domain support: ``health=True`` gives each simulated
     worker its own real health sidecar (ephemeral port) — what the
@@ -701,7 +751,9 @@ class MultiNodeStack:
     apiserver would do."""
 
     def __init__(self, hosts: list, n_chips=4, broker_config=None,
-                 gate=False, health: bool = False):
+                 gate=False, health: bool = False, usage=False,
+                 topo: bool = False,
+                 accelerator: str | None = "nvidia-h100-80gb"):
         from gpumounter_tpu_torch.master.admission import AttachBroker
         from gpumounter_tpu_torch.master.discovery import WorkerDirectory
         from gpumounter_tpu_torch.master.gateway import MasterGateway
@@ -717,8 +769,10 @@ class MultiNodeStack:
         self.master_kube = FakeKubeClient()
         for i, host in enumerate(hosts):
             rig = WorkerRig(host, n_chips=n_chips, node=f"node-{i}",
-                            pod_name=f"workload-{i}", gate=gate)
-            node = make_gpu_node(name=f"node-{i}", gpus=n_chips)
+                            pod_name=f"workload-{i}", gate=gate,
+                            usage=usage, topo=topo)
+            node = make_gpu_node(name=f"node-{i}", accelerator=accelerator,
+                                 gpus=n_chips)
             rig.sim.kube.put_node(node)
             self.master_kube.put_node(node)
             self._attach_drain(rig)
@@ -757,7 +811,8 @@ class MultiNodeStack:
         from gpumounter_tpu_torch.worker.main import start_health_server
         hs = start_health_server(0, journal=rig.journal,
                                  cache=rig.service.reads, gate=rig.gate,
-                                 drain=rig.drain, ready=True)
+                                 drain=rig.drain, usage=rig.usage,
+                                 topo=rig.topo, ready=True)
         self._health_bases[f"127.0.0.1:{grpc_port}"] = \
             f"http://127.0.0.1:{hs.server_port}"
         return hs
@@ -782,6 +837,37 @@ class MultiNodeStack:
         rig.provision_container(pod)
         self.master_kube.put_pod(pod)
         return pod
+
+    def fragment(self, chips: list[int],
+                 idle: tuple[int, ...] = ()) -> dict[int, str]:
+        """Deterministically fragment the fleet: node ``i``'s
+        ``workload-i`` becomes a single-pod slice GROUP holding
+        ``chips[i]`` GPUs (0 = leave the node untouched), and nodes in
+        ``idle`` get the idle stamp on their lease — the shape the defrag
+        suite needs (group leases are the only thing the defragmenter may
+        move, idleness its hardest interlock). On labelled nodes a member
+        must fill its host (``chips[i]`` = ``n_chips``). Returns ``{i:
+        group}`` for the attached nodes."""
+        import json as json_mod
+        out: dict[int, str] = {}
+        for i, n in enumerate(chips):
+            if not n:
+                continue
+            body = json_mod.dumps({
+                "pods": [{"namespace": "default",
+                          "pod": f"workload-{i}"}],
+                "gpusPerHost": n}).encode()
+            status, payload = self.gateway.handle(
+                "POST", "/addgpuslice", body)
+            assert status == 200 and payload["result"] == "SUCCESS", \
+                (status, payload)
+            out[i] = payload["group"]
+        for i in idle:
+            lease = self.gateway.broker.leases.get(
+                "default", f"workload-{i}")
+            assert lease is not None, f"no lease to idle on node-{i}"
+            lease.idle_since_unix = time.time()
+        return out
 
     # -- node failure primitives -----------------------------------------------
 

@@ -88,10 +88,15 @@ class _SliceStack:
     thread. ``health=True`` gives every host its worker's health sidecar
     (the fixture hosts with a ``DrainController`` and the fake device
     gate), which the master's fleet loop scrapes; without it the fleet
-    scrapes nothing."""
+    scrapes nothing. ``fixture_gpus`` and ``accelerator`` shape hosts 1-3
+    (``accelerator=None``: label-less nodes, no group rule); ``rig_options``
+    go to their ``WorkerRig`` s (``usage``, ``topo``), whose sidecars serve
+    them; :meth:`_host0_state` adds to host 0's sidecar."""
 
     def __init__(self, root: str, enumerator: Enumerator,
-                 health: bool = False):
+                 health: bool = False, fixture_gpus: int = 1,
+                 accelerator: str | None = ACCELERATOR,
+                 rig_options: dict | None = None):
         from gpumounter_tpu_torch.k8s.client import InClusterKubeClient
         from gpumounter_tpu_torch.master.admission import (AttachBroker,
                                                            BrokerConfig)
@@ -114,7 +119,7 @@ class _SliceStack:
         self.sidecars: list = [self._sidecar(
             f"127.0.0.1:{self.worker.port}", journal=self.worker.journal,
             cache=self.worker.reads, agent=self.worker.agent,
-            gate=self.worker.gate)]
+            gate=self.worker.gate, **self._host0_state())]
         self.servers: list = [None]
         self.nodes = [NODE]
         self.rigs = []
@@ -128,10 +133,11 @@ class _SliceStack:
                              cgroup_root=os.path.join(base, "sys", "fs",
                                                       "cgroup"))
             node_name = f"gpu-node-{i}"
-            rig = WorkerRig(host, n_chips=1, node=node_name,
-                            pod_name=f"workload-{i}", gate=health)
+            rig = WorkerRig(host, n_chips=fixture_gpus, node=node_name,
+                            pod_name=f"workload-{i}", gate=health,
+                            **(rig_options or {}))
             self._closers.append(rig.close)
-            node = make_gpu_node(node_name, ACCELERATOR, gpus=1)
+            node = make_gpu_node(node_name, accelerator, gpus=fixture_gpus)
             rig.sim.kube.put_node(node)
             # the master's view: the node, the target pod
             self.worker.kube.put_node(node)
@@ -152,6 +158,11 @@ class _SliceStack:
         self.gateway = MasterGateway(self.kube, WorkerDirectory(self.kube),
                                      worker_tracez_base=self.health_bases.get,
                                      broker=AttachBroker(self.kube, config))
+
+    def _host0_state(self) -> dict:
+        """Extra state for host 0's sidecar (``start_health_server``
+        keys); none here."""
+        return {}
 
     def serve(self) -> "_SliceStack":
         self.http = self.gateway.serve(port=0, address="127.0.0.1")
@@ -185,7 +196,8 @@ class _SliceStack:
         self.servers[i] = server
         self.sidecars[i] = self._sidecar(
             f"127.0.0.1:{port}", journal=rig.journal,
-            cache=rig.service.reads, gate=rig.gate, drain=rig.drain)
+            cache=rig.service.reads, gate=rig.gate, drain=rig.drain,
+            usage=rig.usage, topo=rig.topo)
         self.worker.kube.put_pod(worker_pod(
             self.nodes[i], "127.0.0.1", name=f"w{i}", grpc_port=port))
 

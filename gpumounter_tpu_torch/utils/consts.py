@@ -213,8 +213,12 @@ ENV_DEFRAG_IDLE_DUTY_MAX = "TPU_DEFRAG_IDLE_DUTY_MAX"
 DEFAULT_DEFRAG_IDLE_DUTY_MAX = 0.05
 ENV_DEFRAG_MAX_INFLIGHT = "TPU_DEFRAG_MAX_INFLIGHT"
 DEFAULT_DEFRAG_MAX_INFLIGHT = 1
+# Sliding-window migration budget: at most this many moves per
+# DEFRAG_BUDGET_WINDOW_S; exhausting it halts the actuator (and charges a
+# slot for any move whose post-check shows no score improvement).
 ENV_DEFRAG_BUDGET = "TPU_DEFRAG_BUDGET"
 DEFAULT_DEFRAG_BUDGET = 4
+DEFRAG_BUDGET_WINDOW_S = 1800.0
 ENV_SLICE_REPAIR_BUDGET = "TPU_SLICE_REPAIR_BUDGET"
 DEFAULT_SLICE_REPAIR_BUDGET = 3
 

@@ -730,6 +730,12 @@ class Registry:
             "Slice self-healing repair transactions by outcome "
             "(repaired / migrated / torn_down / failed)")
         self.slice_repairs.inc(0.0, outcome="repaired")
+        # Usage sampler (collector/usage.py): each GPU's latest sampled
+        # duty cycle, from NVML's utilization or the open-fd fallback.
+        self.chip_duty_cycle = Gauge(
+            "tpumounter_chip_duty_cycle",
+            "Most recent sampled duty cycle per chip (0 = idle, 1 = "
+            "busy the whole sampling window), by chip id")
         self.lease_utilization = Gauge(
             "tpumounter_lease_utilization",
             "Mean observed duty cycle across a tenant's leased chips "
@@ -739,6 +745,59 @@ class Registry:
             "Leased chips whose lease the broker marked idle (zero "
             "duty past TPU_IDLE_LEASE_S), by tenant — reclaimable "
             "capacity held against quota")
+        # Fleet topology plane (master/topology.py): fragmentation score,
+        # each node's largest schedulable free block, GPUs no valid group
+        # can use (always 0 on GPU nodes, whose free GPUs form one
+        # NVSwitch component), slice host adjacency, the cross-shard
+        # tenant rollup and the defrag candidate report. All vanish under
+        # TPU_TOPOLOGY=0.
+        self.fleet_fragmentation_score = Gauge(
+            "tpumounter_fleet_fragmentation_score",
+            "Fleet-wide fragmentation: 1 - largest schedulable "
+            "contiguous free block / total free chips (0 = unfragmented,"
+            " approaching 1 = free capacity shattered)")
+        self.node_free_contiguous_chips = Gauge(
+            "tpumounter_node_free_contiguous_chips",
+            "Largest schedulable contiguous free block on the node's "
+            "mesh (chips), by node — the biggest aligned group the node "
+            "can still grant")
+        self.stranded_chips = Gauge(
+            "tpumounter_stranded_chips",
+            "Free chips fleet-wide sitting in mesh fragments too small "
+            "or misaligned to form any valid ICI group — capacity no "
+            "aligned grant can use until a defrag move frees it")
+        self.slice_contiguity = Gauge(
+            "tpumounter_slice_contiguity",
+            "Whether the group's member hosts occupy adjacent positions "
+            "in the fleet host order (1 = contiguous, 0 = scattered), "
+            "by group — the NamedSharding row-major adjacency proxy")
+        self.tenant_chips_in_use_global = Gauge(
+            "tpumounter_tenant_chips_in_use_global",
+            "Chips in use per tenant summed across every master shard "
+            "(quotas remain per-shard; this is the report-only global "
+            "rollup), by tenant")
+        self.defrag_candidates = Counter(
+            "tpumounter_defrag_candidates_total",
+            "Defrag candidate reports: leases (idle-preferred) whose "
+            "relocation would merge free blocks into a schedulable "
+            "slice, by node — paired 1:1 with defrag_candidate events")
+        self.defrag_candidates.inc(0.0, node="")
+        # Fleet defragmenter (master/defrag.py): every plan and move
+        # transition crosses its _note_move seam, paired 1:1 with the
+        # defrag_plan / defrag_move events; the in-flight gauge is
+        # bounded by TPU_DEFRAG_MAX_INFLIGHT.
+        self.defrag_moves = Counter(
+            "tpumounter_defrag_moves_total",
+            "Defrag migration transitions by outcome (planned / migrated"
+            " / deferred / aborted / budget_exhausted) — paired 1:1 with"
+            " defrag_plan/defrag_move events")
+        for outcome in ("planned", "migrated", "deferred", "aborted",
+                        "budget_exhausted"):
+            self.defrag_moves.inc(0.0, outcome=outcome)
+        self.defrag_inflight = Gauge(
+            "tpumounter_defrag_inflight",
+            "Defrag migrations currently in flight (journaled and "
+            "actuating; bounded by TPU_DEFRAG_MAX_INFLIGHT)")
         self.build_info = Gauge(
             "tpumounter_build_info",
             "Build identity of this binary (value is always 1; the "

@@ -22,7 +22,6 @@ from gpumounter_tpu_torch.collector.podresources import \
     KubeletPodResourcesClient
 from gpumounter_tpu_torch.device.native_enumerator import best_enumerator
 from gpumounter_tpu_torch.k8s.client import default_kube_client
-from gpumounter_tpu_torch.utils import consts
 from gpumounter_tpu_torch.utils.config import Settings
 from gpumounter_tpu_torch.utils.log import get_logger
 from gpumounter_tpu_torch.utils.metrics import REGISTRY
@@ -365,14 +364,32 @@ def main() -> None:
         service.pool = pool
         _HealthHandler.pool = pool
         logger.info("warm pool enabled: %s", settings.warm_pool_sizes)
-    # Not ported yet: the usage sampler and topology view (the port's
-    # Queue 1 item 12d). /utilz and /topoz answer {"enabled": false}, as
-    # the control plane's worker does with TPU_USAGE=0 and TPU_TOPOLOGY=0.
-    if settings.usage_enabled or settings.topology_enabled:
-        logger.warning("the usage sampler and the topology view are not "
-                       "ported yet (ROADMAP Queue 1 item 12d); /utilz and "
-                       "/topoz answer as with %s=0 and %s=0",
-                       consts.ENV_USAGE, consts.ENV_TOPOLOGY)
+    sampler = None
+    if settings.usage_enabled:
+        # GPU usage sampler (collector/usage.py): duty cycles (NVML
+        # utilization, else open-fd detection) + device open accounting
+        # on its OWN thread, served as GET /utilz — the fleet
+        # aggregator's per-lease utilization source. TPU_USAGE=0 removes
+        # the thread and every new series.
+        from gpumounter_tpu_torch.collector.usage import build_sampler
+        from gpumounter_tpu_torch.utils.flight import RECORDER
+        sampler = build_sampler(service, settings,
+                                gate=service.mounter.gate).start()
+        _HealthHandler.usage = sampler
+        # anomaly bundles on this node answer "what were the GPUs DOING"
+        RECORDER.register_provider("usage", sampler.snapshot)
+        logger.info("usage sampler enabled: interval %.1fs",
+                    settings.usage_interval_s)
+    if settings.topology_enabled:
+        # fleet topology plane (collector/topology.py): snapshot-only GPU
+        # coordinate + occupancy view served as GET /topoz for the
+        # master's fragmentation scoring. No thread — the view reads
+        # state other components already maintain. TPU_TOPOLOGY=0
+        # removes the payload and the fleet scrape.
+        from gpumounter_tpu_torch.collector.topology import \
+            build_topology_view
+        _HealthHandler.topo = build_topology_view(service, settings)
+        logger.info("topology snapshot enabled (/topoz)")
     tls = load_tls_config()
     if tls:
         logger.info("worker gRPC TLS enabled (mTLS=%s)",
@@ -441,6 +458,10 @@ def main() -> None:
             spot_watcher.stop()
         if pool is not None:
             pool.stop()
+        if sampler is not None:
+            from gpumounter_tpu_torch.utils.flight import RECORDER
+            RECORDER.unregister_provider("usage", sampler.snapshot)
+            sampler.stop()
         if _HealthHandler.agent is not None:
             _HealthHandler.agent.stop()
         reconciler.stop()

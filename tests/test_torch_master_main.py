@@ -2,10 +2,11 @@
 gpumounter_tpu_torch.master.main`` as a subprocess against the port's HTTP
 apiserver facade (through its kubeconfig client), in front of a live
 in-process gRPC worker over a WorkerRig. It must answer ``/healthz``,
-attach and detach over the reference's HTTP routes, log ONE WARNING
-naming the planes the environment asks for that are not ported yet, and
-stop on SIGINT; with the HA plane asked for, it leads its shards and
-writes its leases through the intent store. The mirror of
+attach and detach over the reference's HTTP routes, serve every plane the
+environment asks for (the topology plane's ``/topoz`` and the
+defragmenter's ``/fleetz`` section by default) with no "not ported yet"
+WARNING, and stop on SIGINT; with the HA plane asked for, it leads its
+shards and writes its leases through the intent store. The mirror of
 tests/test_boot.py's master half."""
 
 import json
@@ -20,7 +21,6 @@ import urllib.request
 
 import pytest
 
-from gpumounter_tpu_torch.master.main import unported_planes
 from gpumounter_tpu_torch.testing.http_apiserver import (HttpApiserver,
                                                          write_kubeconfig)
 from gpumounter_tpu_torch.testing.sim import WorkerRig, worker_pod
@@ -125,16 +125,14 @@ def test_master_boots_attaches_detaches_and_stops(master):
     assert status == 200 and body["result"] == "SUCCESS"
     assert rig.sim.slave_pods() == []
     assert _call(base + "/version")[1]["version"] == "0.1.0"
+    status, topoz = _call(base + "/topoz")
+    assert status == 200 and topoz["enabled"] is True
+    assert _call(base + "/fleetz")[1]["defrag"]["mode"] == "plan"
     proc.send_signal(signal.SIGINT)
     assert proc.wait(timeout=30) == 0
     log = proc.stdout.read()
-    warnings = [line for line in log.splitlines()
-                if "WARNING" in line and "not ported yet" in line]
-    assert len(warnings) == 1, log[-3000:]
-    assert "Queue 1 item 12c" not in warnings[0]  # node health is ported
-    assert "TPU_NODE_HEALTH" not in warnings[0]
-    assert "Queue 1 item 12d" in warnings[0]     # topology
-    assert "item 12b" not in warnings[0]         # no HA asked for
+    assert "not ported yet" not in log, log[-3000:]
+    assert "Queue 1 item 12" not in log, log[-3000:]
 
 
 @pytest.mark.parametrize("env,expect", [
@@ -143,13 +141,34 @@ def test_master_boots_attaches_detaches_and_stops(master):
       "TPU_MASTER_SHARDS": "2"}, []),
     ({"TPU_NODE_HEALTH": "0", "TPU_TOPOLOGY": "0", "TPU_ELECTION": "1"},
      []),
-    ({"TPU_TOPOLOGY": "0"}, []),
-    ({"TPU_NODE_HEALTH": "0"}, ["12d"]),
-    ({}, ["12d"]),
+    ({"TPU_TOPOLOGY": "0"}, ["nodehealth"]),
+    ({"TPU_NODE_HEALTH": "0"}, ["topology", "defrag"]),
+    ({"TPU_DEFRAG_MODE": "0"}, ["nodehealth", "topology"]),
+    ({}, ["nodehealth", "topology", "defrag"]),
 ])
-def test_unported_planes_are_named(env, expect):
-    asked = unported_planes(Settings.from_env(env))
-    assert [a.rsplit("item ", 1)[1].rstrip(")") for a in asked] == expect
+def test_unported_planes_are_named(env, expect, monkeypatch):
+    """No plane is left unported: the master the entry point builds for
+    each environment runs exactly the planes it asks for (node health,
+    the topology plane, the defragmenter), and the entry point has no
+    list of planes it would have to name as missing."""
+    from gpumounter_tpu_torch.k8s.client import FakeKubeClient
+    from gpumounter_tpu_torch.master import main as main_mod
+    from gpumounter_tpu_torch.master.discovery import WorkerDirectory
+    from gpumounter_tpu_torch.master.gateway import MasterGateway
+    from gpumounter_tpu_torch.master.shardring import HAConfig
+    for key in ("TPU_NODE_HEALTH", "TPU_TOPOLOGY", "TPU_DEFRAG_MODE",
+                "TPU_MASTER_SHARDS", "TPU_ELECTION"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    assert not hasattr(main_mod, "unported_planes")
+    kube = FakeKubeClient()
+    gateway = MasterGateway(kube, WorkerDirectory(kube),
+                            ha=HAConfig.from_settings(
+                                Settings.from_env(env)))
+    built = [name for name in ("nodehealth", "topology", "defrag")
+             if getattr(gateway, name) is not None]
+    assert built == expect
 
 
 def test_master_boots_with_the_ha_plane(tmp_path):

@@ -4,9 +4,10 @@ apiserver facade (through its kubeconfig client) and its PodResources
 server on a unix socket, over a fixture node of four fake GPUs whose
 driver proc tree names their UUIDs. It must answer ``/readyz``, attach and
 detach over gRPC with REAL char nodes made in the fixture container (the
-test runs as root, on tmpfs), serve its introspection routes, log the one
-WARNING for the routes not ported yet, and stop on SIGTERM. The mirror of
-tests/test_boot.py's worker half."""
+test runs as root, on tmpfs), serve its introspection routes — /utilz
+from its usage sampler (open-fd detection here: no NVML) and /topoz from
+its topology view, with no "not ported yet" WARNING — and stop on SIGTERM.
+The mirror of tests/test_boot.py's worker half."""
 
 import json
 import os
@@ -137,7 +138,7 @@ def node(request):
         "TPU_KUBELET_SOCKET": host.kubelet_socket,
         "TPU_WORKER_GRPC_PORT": str(port),
         "TPU_JOURNAL_PATH": os.path.join(root, "journal.jsonl"),
-        "TPU_ALLOCATION_TIMEOUT_S": "20"})
+        "TPU_ALLOCATION_TIMEOUT_S": "20", "TPU_USAGE_INTERVAL_S": "0.2"})
     env.update(getattr(request, "param", {}))
     proc = subprocess.Popen(
         [sys.executable, "-m", "gpumounter_tpu_torch.worker.main"],
@@ -195,8 +196,24 @@ def test_worker_boots_attaches_and_detaches(node):
         assert gatez["backend"] == "cgroup-v1"
         assert json.loads(_get(f"{health}/journalz")[1])["backlog"] == 0
         assert json.loads(_get(f"{health}/cachez")[1])["enabled"]
-        for route in ("/utilz", "/topoz", "/poolz"):
-            assert json.loads(_get(health + route)[1]) == {"enabled": False}
+        assert json.loads(_get(f"{health}/poolz")[1]) == {"enabled": False}
+        topoz = json.loads(_get(f"{health}/topoz")[1])
+        assert (topoz["node"], topoz["accelerator"], topoz["gpus_per_node"],
+                topoz["mesh"]) == ("node-a", "nvidia-h100-80gb", 4, [1, 4])
+        assert [(c["chip"], c["state"], c.get("owner")) for c in
+                topoz["chips"]] == [
+            (fake_uuid(0), "leased", "default/workload"),
+            (fake_uuid(1), "leased", "default/workload"),
+            (fake_uuid(2), "free", None), (fake_uuid(3), "free", None)]
+        deadline = time.monotonic() + 20
+        while True:
+            utilz = json.loads(_get(f"{health}/utilz")[1])
+            if len(utilz["chips"]) == 4 or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        assert utilz["enabled"] and utilz["node"] == "node-a"
+        assert {(c["duty_source"], c["busy"]) for c in utilz["chips"]} == \
+            {("open-fd", False)}
         metrics = _get(f"{health}/metrics")[1]
         assert 'tpumounter_attach_total{result="SUCCESS"} 1' in metrics
 
@@ -209,10 +226,8 @@ def test_worker_boots_attaches_and_detaches(node):
     proc.send_signal(signal.SIGTERM)
     assert proc.wait(timeout=30) in (0, -signal.SIGTERM)
     log = proc.stdout.read()
-    warnings = [line for line in log.splitlines()
-                if "WARNING" in line and "Queue 1 item 12" in line]
-    assert len(warnings) == 1, log[-3000:]
-    assert "/utilz" in warnings[0] and "/topoz" in warnings[0]
+    assert "not ported yet" not in log, log[-3000:]
+    assert "Queue 1 item 12" not in log, log[-3000:]
 
 
 @pytest.mark.parametrize("node", [{"TPU_WARM_POOL": "single:1=1",
