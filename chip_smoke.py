@@ -173,7 +173,25 @@ Phases, each printing one JSON line on stdout:
      in the kernels line); the topology, defrag and slice invariants,
      fallbacks 0, the phase under 60 s; with the GET, sampling, NVML,
      scoring and move times;
- 17. the kernels line (each entry names the device function and the line
+ 17. operator — the operator's command line
+     (``gpumounter_tpu_torch/testing/operator.py``, in a fresh interpreter,
+     so doctor judges a registry holding only this phase's work):
+     ``gpumounterctl``, one ``python3 -m gpumounter_tpu_torch.cli`` process
+     per command (no CUDA context), against the master of phase 12 in
+     front of the worker on this machine's card, the worker's usage
+     sampler holding NVML and its ``/topoz`` view on the sidecar:
+     ``add --gpus 1 --json`` exits 0 with the card's nvidia-smi UUID,
+     ``status`` lists it, the in-pod ``flash_fwd`` proof runs on it (its
+     launch reported here, not in the kernels line), ``utilz`` reads the
+     card from ``nvml``, ``trace <rid>`` draws the master's and the
+     worker's spans, ``node`` and ``topo`` exit 0 and ``topo`` lists the
+     UUID, ``doctor --node`` exits 0 or 1 with only the warning the phase
+     names (the node's one GPU is attached), ``remove`` leaves no slave
+     pod; 10 timed add/remove pairs (each process from start to exit,
+     beside the request's gateway span) and ``--version``; an unreachable
+     master exits 10; an add whose first reply a proxy drops is retried
+     under the same request id and makes one slave pod; fallbacks 0;
+ 18. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -1670,6 +1688,25 @@ def defrag(card: str) -> dict:
             "ok": all(checks.values())}
 
 
+OPERATOR_DIR = os.path.join(REPO, "build", "operator")
+
+
+def operator(card: str) -> dict:
+    """gpumounterctl driving an attach of this machine's card through the
+    port's master, with the in-pod proof on the card
+    (``testing/operator.py``, run in its own interpreter). The card's UUID
+    must be one nvidia-smi names."""
+    from gpumounter_tpu_torch.testing.operator import run_in_subprocess
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_in_subprocess(OPERATOR_DIR)
+    checks = report.get("checks", {})
+    checks["card_is_an_nvidia_smi_uuid"] = (
+        report.get("card", {}).get("uuid") in smi_uuids)
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": bool(report.get("ok")) and all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1885,6 +1922,7 @@ def main() -> int:
     phase("ha_attach", lambda: ha_attach(card))
     phase("node_failure", lambda: node_failure(card))
     phase("defrag", lambda: defrag(card))
+    phase("operator", lambda: operator(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

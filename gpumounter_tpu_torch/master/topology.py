@@ -58,6 +58,9 @@ from gpumounter_tpu_torch.utils.metrics import REGISTRY
 
 logger = get_logger("master.topology")
 
+# Sustained score above this is the doctor WARN / alert-rule threshold
+# (TPUMounterFleetFragmented fires on it after its `for:` window).
+FRAG_WARN_THRESHOLD = 0.5
 # Report bound: the optimizer input stays readable and /fleetz bounded no
 # matter how torn the fleet is.
 MAX_DEFRAG_CANDIDATES = 16

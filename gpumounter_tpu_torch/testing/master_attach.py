@@ -131,7 +131,8 @@ class _MasterStack:
         self._closers: list[Callable[[], object]] = [self.worker.close]
         self.health = start_health_server(
             0, journal=self.worker.journal, cache=self.worker.reads,
-            agent=self.worker.agent, gate=self.worker.gate, ready=True)
+            agent=self.worker.agent, gate=self.worker.gate, ready=True,
+            **self._sidecar_state())
         self._closers.append(self.health.shutdown)
         health_base = f"http://127.0.0.1:{self.health.server_port}"
         self.worker.kube.put_pod(worker_pod(NODE, "127.0.0.1",
@@ -147,6 +148,11 @@ class _MasterStack:
         self.http = self.gateway.serve(port=0, address="127.0.0.1")
         self._closers.append(self.http.shutdown)
         self.base = f"http://127.0.0.1:{self.http.server_port}"
+
+    def _sidecar_state(self) -> dict:
+        """Extra state for the worker's health sidecar (``usage``,
+        ``topo``); none here."""
+        return {}
 
     def close(self) -> None:
         for close in reversed(self._closers):
