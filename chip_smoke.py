@@ -191,7 +191,30 @@ Phases, each printing one JSON line on stdout:
      beside the request's gateway span) and ``--version``; an unreachable
      master exits 10; an add whose first reply a proxy drops is retried
      under the same request id and makes one slave pod; fallbacks 0;
- 18. the kernels line (each entry names the device function and the line
+ 18. chaos — a worker holding this machine's card crashed and replayed
+     (``gpumounter_tpu_torch/testing/worker_chaos.py``, the worker of phase
+     11, whose crash rebuilds the journal object, the device gate, the
+     agent, the service and the gRPC server over the surviving cluster,
+     fixture cgroup, nodes and journal file): 10 fault-free timed
+     ``AddGPU`` + ``RemoveGPU`` pairs; the attach killed at each crash
+     point (``before_actuate``, ``mid_actuate``, ``before_commit``), each
+     crash asserted to have fired, the restart's replay completing it
+     (timed from restart to replay done, with its facade requests) with the
+     card's node matching the host node's ``st_rdev``, the gate granting
+     exactly the card, one slave pod, no backlog, one resumed attach event,
+     then a ``RemoveGPU`` leaving no companion rule and no node; the
+     owner's death after ``before_commit`` replayed to a revert; the
+     detach killed mid-revoke and inside the v1 gate's sync (a pending
+     gate record), the restart re-granting and the retried detach
+     revoking; eight transient plans over the facade (socket drops, 429s,
+     latency, watch hang and death, event 500s, and the PodResources
+     server stopped and restarted during the attach), one timed pair
+     each against the fault-free median, with the retries and requests
+     counted; the in-pod ``flash_fwd`` on the card after the first replay
+     and after the plans (its launches reported here, not in the kernels
+     line); the chaos invariants at every step, fallbacks 0, the phase
+     under 60 s;
+ 19. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -1707,6 +1730,38 @@ def operator(card: str) -> dict:
             "ok": bool(report.get("ok")) and all(checks.values())}
 
 
+WORKER_CHAOS_DIR = os.path.join(REPO, "build", "worker_chaos")
+CHAOS_LIMIT_S = 60.0
+
+
+def worker_chaos(card: str) -> dict:
+    """A worker holding this machine's card crashed and replayed
+    (``testing/worker_chaos.py``): the attach dies at each crash point and
+    the restarted worker's replay completes it, the owner's death makes
+    the replay revert, the detach dies mid-revoke and inside the v1 gate's
+    sync, the transient plans run over the HTTP apiserver facade, and the
+    in-pod proof launches ``flash_fwd`` on the card after the first replay
+    and after the plans. The card's UUID must be one nvidia-smi names, and
+    the phase must stay under a minute."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.master_attach import cuda_proof
+    from gpumounter_tpu_torch.testing.worker_chaos import run_worker_chaos
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_worker_chaos(WORKER_CHAOS_DIR, PyEnumerator(HostPaths()),
+                              cuda_proof)
+    checks = report["checks"]
+    uuid = report.get("card", {}).get("uuid")
+    checks["card_is_an_nvidia_smi_uuid"] = uuid in smi_uuids
+    checks["in_pod_pinned_to_the_card"] = all(
+        report.get(label, {}).get("visible") == uuid
+        for label in ("in_pod_after_replay", "in_pod_after_plans"))
+    checks["phase_under_a_minute"] = report["phase_s"] < CHAOS_LIMIT_S
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1923,6 +1978,7 @@ def main() -> int:
     phase("node_failure", lambda: node_failure(card))
     phase("defrag", lambda: defrag(card))
     phase("operator", lambda: operator(card))
+    phase("chaos", lambda: worker_chaos(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

@@ -48,8 +48,10 @@ pair. Before a container's first grant the gate records the char nodes its
 then denies a companion only when no remaining GPU needs it and the
 container did not hold it before any attach
 (:func:`~gpumounter_tpu_torch.actuation.bpf.revoked_majmins`). A container
-whose baseline was never observed (a restarted worker's first touch is a
-revoke) keeps its companions.
+whose baseline was never observed keeps its companions. The baseline is
+persisted in the attach journal (``baseline`` records): a restarted
+worker's gate reads it back, since after an attach the container's /dev
+no longer tells a companion the runtime gave from one the attach added.
 """
 
 from __future__ import annotations
@@ -513,8 +515,11 @@ class DeviceGate:
         self._drift: list[dict] = []
         self._converge_stats: dict = {}
         # container key -> the (major, minor) pairs its /dev held before
-        # its first grant (None = not observable then)
-        self._held: dict[str, set[tuple[int, int]] | None] = {}
+        # its first grant (None = not observable then); persisted in the
+        # journal, so a restarted worker's gate starts from what the dead
+        # one observed
+        self._held: dict[str, set[tuple[int, int]] | None] = (
+            journal.baselines() if journal is not None else {})
 
     @property
     def live(self) -> bool:
@@ -579,7 +584,18 @@ class DeviceGate:
                 return
         held = self.controller.held_majmins(pod, container_id)
         with self._lock:
-            self._held.setdefault(key, held)
+            if key in self._held:
+                return
+            self._held[key] = held
+        if self.journal is not None:
+            self.journal.record_baseline(key, held)
+
+    def _forget_held(self, key: str) -> None:
+        """Drop a reclaimed container's baseline, in memory and journal."""
+        with self._lock:
+            self._held.pop(key, None)
+        if self.journal is not None:
+            self.journal.drop_baseline(key)
 
     # -- the two sanctioned mutations ------------------------------------------
 
@@ -926,8 +942,8 @@ class DeviceGate:
             orphans += 1
             with self._lock:
                 entry = self._entries.pop(key, None)
-                self._held.pop(key, None)
                 self._counts["reclaims"] += 1
+            self._forget_held(key)
             EVENTS.emit("gate_reclaim", node=self.node_name,
                         namespace=entry.namespace if entry else "",
                         pod=entry.pod if entry else "", key=key,
@@ -967,9 +983,9 @@ class DeviceGate:
                 # the still-live grant invisible to every future audit
                 continue
             now = time.monotonic()
+            self._forget_held(entry.key)
             with self._lock:
                 self._entries.pop(entry.key, None)
-                self._held.pop(entry.key, None)
                 self._counts["reclaims"] += 1
                 for mms in entry.chips.values():
                     for mm in mms:
@@ -1042,7 +1058,7 @@ def build_gate(settings, controller, journal=None) -> DeviceGate:
     legacy — LOUD, counted, but never unenforced."""
     node_name = settings.node_name
     if settings.gate_mode == "legacy":
-        return DeviceGate(controller, None, mode="legacy",
+        return DeviceGate(controller, None, journal=journal, mode="legacy",
                           node_name=node_name)
     backend: GateBackend | None = None
     if controller.version == 2:
@@ -1064,7 +1080,7 @@ def build_gate(settings, controller, journal=None) -> DeviceGate:
         backend = CgroupV1GateBackend(controller)
     if backend is None:
         REGISTRY.gate_syncs.inc(backend="native-map", outcome="fault")
-        return DeviceGate(controller, None, mode="legacy",
+        return DeviceGate(controller, None, journal=journal, mode="legacy",
                           node_name=node_name)
     return DeviceGate(controller, backend, journal=journal, mode="auto",
                       node_name=node_name)

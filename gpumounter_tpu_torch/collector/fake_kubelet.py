@@ -132,6 +132,15 @@ class FakeKubeletServer:
         self._server.start()
         return self
 
+    def pause(self) -> None:
+        """Stop serving and remove the socket, as a restarting kubelet
+        does; :meth:`start` serves again on the same path."""
+        if self._server is not None:
+            self._server.stop(grace=0).wait()
+            self._server = None
+        if os.path.exists(self.socket_path):
+            os.unlink(self.socket_path)
+
     def stop(self) -> None:
         if self._server is not None:
             self._server.stop(grace=0)

@@ -278,6 +278,9 @@ class FakePodResourcesClient(PodResourcesClient):
         # {resource: [ids]} — what a v1 kubelet's GetAllocatableResources
         # reports. None = "no v1 allocatable view" (v1alpha1-era behaviour).
         self.allocatable: dict[str, list[str]] | None = None
+        # testing/chaos.py FaultInjector: kubelet socket-flap injection
+        # fires inside the base class's retry layer, same as production.
+        self.faults = None
 
     def assign(self, namespace: str, pod: str, device_ids: list[str],
                container: str = "main",
@@ -289,6 +292,8 @@ class FakePodResourcesClient(PodResourcesClient):
         self.assignments.pop((namespace, pod), None)
 
     def _list_pods_once(self) -> PodResourcesListing:
+        if self.faults is not None:
+            self.faults.fire("LIST", "podresources")
         self.list_calls += 1
         return PodResourcesListing([
             PodResources(pod, ns, [

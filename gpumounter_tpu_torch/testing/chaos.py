@@ -1,20 +1,43 @@
-"""Fault injection for the port's test rigs (the start of the port of
-:mod:`gpumounter_tpu.testing.chaos`): :class:`ConnectionDropped`, which the
-HTTP apiserver facade (:mod:`.http_apiserver`) turns into a torn TCP
-connection, and the :class:`Fault` rules a :class:`FaultInjector` applies
-at the fakes' seams (``FakeKubeClient.faults``, ``HttpApiserver.faults``),
-the broker contract :func:`assert_broker_invariants` and the multi-host
-slice contract :func:`assert_slice_invariants`, each with its intent-store
-and node-death clauses (:func:`assert_node_death_invariants`), and the
-topology plane's and the defragmenter's contracts
-(:func:`assert_topology_invariants`, :func:`assert_defrag_invariants`).
-The fault plans, crash points and chaos rigs arrive with ROADMAP Queue 1
-item 12e.
+"""Deterministic fault injection for the port's fake control plane (the
+port of :mod:`gpumounter_tpu.testing.chaos`).
+
+Transient faults are rare in test rigs, so resilience code rots unless
+failures can be scripted: this module is the chaos harness that keeps the
+retry layer, the circuit breakers, the watch-resume machinery, the attach
+journal and the device gate's convergence honest. It threads through the
+fake stack at the SAME seams production faults hit:
+
+- :class:`FaultInjector` plugs into ``FakeKubeClient.faults`` and
+  ``FakePodResourcesClient.faults``: every verb consults it inside the
+  retry layer, so an injected 500 burst exercises the identical backoff
+  path a real apiserver hiccup would. ``HttpApiserver`` consults it at
+  the HTTP layer, where :class:`ConnectionDropped` becomes a torn TCP
+  connection.
+- :class:`FaultPlan` is a named, ordered set of :class:`Fault` rules —
+  error bursts, added latency, connection drops, watch hangs and
+  mid-stream watch death, kubelet socket flaps.
+- :class:`ChaosRig` wraps a :class:`~.sim.WorkerRig` with crash points
+  (:data:`CRASH_POINTS`, :data:`DETACH_CRASH_POINTS`): a simulated worker
+  death before / in the middle of / right after actuation, or inside a
+  detach's revoke, followed by :meth:`ChaosRig.restart_worker`, which
+  boots a fresh service over the same cluster, journal file and gate
+  backend and runs the startup replay.
+
+:func:`assert_invariants` states the contract every fault plan must
+preserve: attaches converge or roll back cleanly — no leaked slave-pod
+reservations, no partial device grants, no journal backlog, at most one
+logical ``GPUAttached`` per attach, and gate grants equal to ground
+truth. The broker, slice, node-death, topology and defragmenter
+contracts (:func:`assert_broker_invariants`,
+:func:`assert_slice_invariants`, :func:`assert_node_death_invariants`,
+:func:`assert_topology_invariants`, :func:`assert_defrag_invariants`)
+ride on top of it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 
@@ -32,6 +55,12 @@ class ConnectionDropped(K8sApiError):
 
     def __init__(self):
         super().__init__(0, "injected connection drop", cause="reset")
+
+
+class WorkerCrash(Exception):
+    """Simulated worker death at a crash point. Deliberately NOT a
+    TPUMounterError: a crash runs no rollback handler, no journal commit
+    — exactly the state a SIGKILL'd worker leaves behind."""
 
 
 @dataclasses.dataclass
@@ -120,6 +149,186 @@ class FaultInjector:
     def remaining(self) -> int:
         with self._lock:
             return sum(max(0, f.times) for f in self._faults)
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """A named chaos scenario: the unit of the test matrix."""
+
+    name: str
+    faults: list[Fault]
+    description: str = ""
+
+    def injector(self) -> FaultInjector:
+        return FaultInjector(self.faults)
+
+
+# Where a simulated worker death can be armed, relative to actuation —
+# the window the attach journal exists to cover:
+#   before_actuate: intent journaled, slave pods reserved, nothing granted
+#   mid_actuate:    gate granted + first device node created, rest missing
+#   before_commit:  actuation complete, commit record never written
+CRASH_POINTS = ("before_actuate", "mid_actuate", "before_commit")
+# Detach-window crash points the device gate's convergence covers
+# (gated rigs only for mid_gate_sync):
+#   mid_revoke:     died AFTER the gate revoked device access but BEFORE
+#                   the nodes were unlinked / slaves released
+#   mid_gate_sync:  died INSIDE the gate backend mutation — the gate
+#                   journal record is written, its commit never is (the
+#                   pending-record window convergence must resolve)
+DETACH_CRASH_POINTS = ("mid_revoke", "mid_gate_sync")
+
+
+def arm_crash(point: str, mounter, journal, backend=None,
+              fired: list | None = None) -> list:
+    """Plant a :class:`WorkerCrash` at ``point`` on the objects a worker's
+    attach or detach actually reaches: ``mounter.mount_chips``, the
+    mounter's actuator's ``apply_device_nodes`` (the one batch call every
+    actuator — recording, procroot, the resident agent's — answers),
+    ``journal.commit`` or the gate ``backend``'s ``sync``/``attach``.
+    Each crash appends ``point`` to ``fired`` as it raises: a crash armed
+    where the path never goes passes silently, so callers assert it
+    fired. Returns the undo callables."""
+    assert point in CRASH_POINTS + DETACH_CRASH_POINTS, point
+
+    def crash():
+        if fired is not None:
+            fired.append(point)
+        return WorkerCrash(point)
+
+    if point == "before_actuate":
+        orig_mount = mounter.mount_chips
+
+        def crash_mount(*args, **kwargs):
+            raise crash()
+        mounter.mount_chips = crash_mount
+        return [lambda: setattr(mounter, "mount_chips", orig_mount)]
+    if point in ("mid_actuate", "mid_revoke"):
+        actuator = mounter.actuator
+        orig_apply = actuator.apply_device_nodes
+        landed: list = []       # mid_actuate: the one node let through
+
+        def crash_in_batch(pid, creates=(), removes=(), *args, **kwargs):
+            if point == "mid_actuate":
+                # the first device node lands, the rest never do
+                if len(landed) + len(creates) > 1:
+                    if not landed:
+                        orig_apply(pid, list(creates)[:1], [], *args,
+                                   **kwargs)
+                    raise crash()
+                landed.extend(creates)
+            elif removes:
+                # die on the first node unlink: the gate revoke (which
+                # runs FIRST on the detach path) has landed
+                raise crash()
+            return orig_apply(pid, creates, removes, *args, **kwargs)
+        actuator.apply_device_nodes = crash_in_batch
+        return [lambda: setattr(actuator, "apply_device_nodes", orig_apply)]
+    if point == "before_commit":
+        orig_commit = journal.commit
+
+        def crash_commit(jid):
+            raise crash()
+        journal.commit = crash_commit
+        return [lambda: setattr(journal, "commit", orig_commit)]
+    assert backend is not None, "mid_gate_sync needs a gate backend " \
+        "(a rig built with gate=)"
+    orig_sync, orig_attach = backend.sync, backend.attach
+
+    def crash_sync(*args, **kwargs):
+        raise crash()
+    backend.sync = crash_sync
+    backend.attach = crash_sync
+    return [lambda: (setattr(backend, "sync", orig_sync),
+                     setattr(backend, "attach", orig_attach))]
+
+
+class ChaosRig:
+    """A WorkerRig under a fault plan, with worker crash-restart.
+
+    ``crash`` semantics: :meth:`arm_crash` plants a :class:`WorkerCrash`
+    at the named point; the attach raises it without running rollback
+    (like a real SIGKILL). :meth:`restart_worker` then "boots a new
+    worker process" (:meth:`~.sim.WorkerRig.restart_worker`): fresh
+    journal object over the same journal file, fresh DeviceGate over the
+    SAME gate backend (the fake backend plays the kernel, whose maps
+    survive a worker crash), fresh service, startup replay.
+    """
+
+    def __init__(self, fake_host, n_chips: int = 4,
+                 plan: FaultPlan | None = None, **rig_kwargs):
+        from gpumounter_tpu_torch.testing.sim import WorkerRig
+        self.rig = WorkerRig(fake_host, n_chips=n_chips, **rig_kwargs)
+        self.injector: FaultInjector | None = None
+        self.fired: list[str] = []     # crash points that went off
+        self._unwind: list = []
+        if plan is not None:
+            self.install(plan)
+
+    def install(self, plan: FaultPlan) -> FaultInjector:
+        self.injector = plan.injector()
+        self.rig.sim.kube.faults = self.injector
+        self.rig.sim.podresources.faults = self.injector
+        return self.injector
+
+    # -- crash points ----------------------------------------------------------
+
+    def arm_crash(self, point: str) -> None:
+        self._unwind += arm_crash(point, self.rig.mounter,
+                                  self.rig.service.journal,
+                                  self.rig.gate_backend, fired=self.fired)
+
+    def disarm(self) -> None:
+        while self._unwind:
+            self._unwind.pop()()
+
+    # -- lifecycle -------------------------------------------------------------
+
+    def restart_worker(self) -> dict[str, int]:
+        """Disarm, then boot a fresh worker over the same node state;
+        returns the replay outcome counts."""
+        self.disarm()
+        return self.rig.restart_worker()
+
+    def close(self) -> None:
+        self.disarm()
+        self.rig.close()
+
+
+def wait_events_drained(service, timeout_s: float = 5.0) -> None:
+    """Block until the service's async audit-event queue has flushed (two
+    consecutive empty observations — the worker thread may be mid-POST on
+    the first)."""
+    deadline = time.monotonic() + timeout_s
+    stable = 0
+    while time.monotonic() < deadline:
+        if not service._event_queue:
+            stable += 1
+            if stable >= 2:
+                return
+        else:
+            stable = 0
+        time.sleep(0.03)
+
+
+def _fixture_device_nodes(rig) -> set[str]:
+    """Container-side device-node paths present under every provisioned
+    container root of the fixture tree (procroot/agent rigs write real
+    files there; ``.majmin`` sidecars are the fixture format's metadata,
+    not nodes)."""
+    nodes: set[str] = set()
+    proc_root = rig.host.proc_root
+    for pid in os.listdir(proc_root):
+        root = os.path.join(proc_root, pid, "root")
+        if not os.path.isdir(root):
+            continue
+        for dirpath, _dirnames, filenames in os.walk(root):
+            for name in filenames:
+                if name.endswith(".majmin"):
+                    continue
+                full = os.path.join(dirpath, name)
+                nodes.add("/" + os.path.relpath(full, root))
+    return nodes
 
 
 def _held_by_owner(sim) -> dict[tuple[str, str], int]:
@@ -459,3 +668,96 @@ def assert_slice_invariants(broker, sims, kube=None, store=None,
         assert not leftovers, \
             f"slice txn record(s) outlived resolution: " \
             f"{[r.txn_id for r in leftovers]}"
+
+
+def assert_invariants(rig, expected_uuids: set[str],
+                      owner: str = "workload",
+                      namespace: str = "default",
+                      max_attached_events: int | None = None,
+                      held: set[str] = frozenset()) -> None:
+    """The post-plan contract every chaos scenario must uphold.
+
+    ``expected_uuids``: GPUs the surviving state should grant the owner
+    (empty set = the attach must have rolled back / reverted completely).
+    ``held``: container paths of the nodes the runtime gave the
+    container before any attach (they stay through every plan).
+
+    1. **No leaked reservations**: the slave pods holding GPUs are
+       exactly the ones backing ``expected_uuids`` — a failed attach left
+       none behind, a converged one leaked no extras.
+    2. **No partial device grants**: the device nodes present in the
+       owner's container are exactly the expected GPUs' nodes, their
+       companions (``nvidiactl`` and the uvm pair ride with any GPU) and
+       ``held`` — a detach that left a companion behind fails here.
+    3. **No journal backlog**: every journaled intent reached a terminal
+       state (committed/reverted).
+    4. **Idempotency**: across every retry/replay, at most ONE logical
+       GPUAttached event per logical attach (resumes record
+       GPUAttachResumed instead).
+    5. **Gate == ground truth** (gated rigs): the GPUs the device gate
+       grants are exactly ``expected_uuids`` — no GPU is accessible
+       (gate-granted) without a live attachment backing it, and no live
+       attachment lost its grant.
+    """
+    sim = rig.sim
+    # 1. reservations: GPUs assigned to live non-warm slave pods
+    granted_slaves: set[str] = set()
+    for pod in sim.slave_pods():
+        labels = objects.labels(pod)
+        if labels.get(consts.WARM_POD_LABEL_KEY) == \
+                consts.WARM_POD_LABEL_VALUE:
+            continue
+        key = (objects.namespace(pod), objects.name(pod))
+        for containers in (sim.podresources.assignments.get(key) or {}
+                           ).values():
+            for ids in containers.values():
+                granted_slaves.update(ids)
+    assert granted_slaves == expected_uuids, \
+        f"slave-pod reservations {sorted(granted_slaves)} != expected " \
+        f"{sorted(expected_uuids)} (leak or lost grant)"
+
+    # 2. device nodes actually present in the owner's container. A
+    # recording rig is asked directly; a procroot (or agent-over-procroot)
+    # rig is audited from the fixture tree itself — the files under
+    # <proc>/<pid>/root are the ground truth the agent/fallback wrote.
+    gpus_by_uuid = {g.uuid: g for g in sim.enumerator.enumerate()}
+    expected_paths = set(held)
+    for uuid in expected_uuids:
+        gpu = gpus_by_uuid[uuid]
+        expected_paths.add(gpu.container_path)
+        expected_paths.update(c.container_path for c in gpu.companions)
+    if hasattr(rig.actuator, "created"):
+        created_paths = {path for _, path, _, _ in rig.actuator.created}
+        created_paths |= set(held)
+    else:
+        created_paths = _fixture_device_nodes(rig)
+    assert created_paths == expected_paths, \
+        f"device nodes {sorted(created_paths)} != expected " \
+        f"{sorted(expected_paths)} (partial grant)"
+
+    # 3. journal fully resolved
+    backlog = rig.service.journal.backlog() \
+        if rig.service.journal is not None else 0
+    assert backlog == 0, \
+        f"journal still holds {backlog} incomplete record(s)"
+
+    # 5. gate state mirrors ground truth, audited from the rig's LIVE
+    # gate (post-restart rigs carry the rebuilt one)
+    gate = getattr(rig, "gate", None)
+    if gate is not None and gate.live:
+        granted = gate.granted_uuids()
+        assert granted == expected_uuids, \
+            f"gate grants {sorted(granted)} != expected " \
+            f"{sorted(expected_uuids)} (a GPU is accessible without a " \
+            "live lease/attachment, or a lease lost its grant)"
+
+    # 4. <= one logical GPUAttached per attach. Default: one when GPUs are
+    # expected, zero when the plan should have reverted everything; a test
+    # that legitimately attached then detached passes its own bound.
+    if max_attached_events is None:
+        max_attached_events = 1 if expected_uuids else 0
+    wait_events_drained(rig.service)
+    attached = [e for e in sim.kube.events
+                if e.get("reason") == "GPUAttached"]
+    assert len(attached) <= max_attached_events, \
+        f"double GPUAttached: {[e['message'] for e in attached]}"

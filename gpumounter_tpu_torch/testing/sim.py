@@ -154,6 +154,11 @@ class ClusterSim:
             resource_name=self.settings.resource_name,
             pool_namespace=self.settings.pool_namespace)
 
+    @property
+    def kubelet_server(self):
+        """The PodResources gRPC server (None with the in-memory fake)."""
+        return self._kubelet_server
+
     def close(self) -> None:
         if self._kubelet_server is not None:
             self._kubelet_server.stop()
@@ -288,8 +293,10 @@ class WorkerRig:
         os.makedirs(self.cgroup_dir, exist_ok=True)
         with open(os.path.join(self.cgroup_dir, "cgroup.procs"), "w") as f:
             f.write(f"{pid}\n")
-        os.makedirs(os.path.join(fake_host.proc_root, str(pid)),
-                    exist_ok=True)
+        # the container's /dev, empty: the gate reads the companion
+        # baseline there before the first grant
+        os.makedirs(os.path.join(fake_host.proc_root, str(pid), "root",
+                                 "dev"), exist_ok=True)
 
         self._actuator_kind = actuator
         # DrainController (worker/drain.py), attached by stacks that
@@ -299,8 +306,6 @@ class WorkerRig:
             self.actuator = RecordingActuator()
         elif actuator == "procroot":
             self.actuator = ProcRootActuator(fake_host, fake_nodes=True)
-            os.makedirs(os.path.join(fake_host.proc_root, str(pid), "root",
-                                     "dev"), exist_ok=True)
         else:
             raise ValueError(f"unknown actuator kind {actuator!r}")
         # Resident actuation agent (``agent=True``): the production
@@ -332,18 +337,14 @@ class WorkerRig:
         self.gate = None
         self.gate_backend = None
         if gate:
-            from gpumounter_tpu_torch.actuation.gate import (DeviceGate,
-                                                             FakeGateBackend,
+            from gpumounter_tpu_torch.actuation.gate import (FakeGateBackend,
                                                              GateBackend)
             self.gate_backend = (gate if isinstance(gate, GateBackend)
                                  else FakeGateBackend())
-            self.gate = DeviceGate(self.cgroups, self.gate_backend,
-                                   journal=self.journal, mode="auto",
-                                   node_name=node)
         self.mounter = GPUMounter(self.cgroups, self.actuator,
                                   self.sim.enumerator, fake_host,
                                   plans=self.sim.collector.plans,
-                                  gate=self.gate)
+                                  gate=self._build_gate())
         # Shared pod informer (``informer=True``): ONE list+watch over the
         # pool namespace serves every hot-path read — the production
         # default wiring (worker/main.py). Off by default so unit rigs
@@ -429,11 +430,8 @@ class WorkerRig:
             os.makedirs(cgroup_dir, exist_ok=True)
             with open(os.path.join(cgroup_dir, "cgroup.procs"), "w") as f:
                 f.write(f"{next_pid}\n")
-            os.makedirs(os.path.join(self.host.proc_root, str(next_pid)),
-                        exist_ok=True)
-            if self._actuator_kind == "procroot":
-                os.makedirs(os.path.join(self.host.proc_root, str(next_pid),
-                                         "root", "dev"), exist_ok=True)
+            os.makedirs(os.path.join(self.host.proc_root, str(next_pid),
+                                     "root", "dev"), exist_ok=True)
             out[cid] = next_pid
             next_pid += 1
         return out
@@ -447,16 +445,25 @@ class WorkerRig:
         from gpumounter_tpu_torch.worker.journal import AttachJournal
         from gpumounter_tpu_torch.worker.service import GPUMountService
         self.journal = AttachJournal(self.sim.settings.journal_path)
-        if self.gate is not None:
-            from gpumounter_tpu_torch.actuation.gate import DeviceGate
-            self.gate = DeviceGate(self.cgroups, self.gate_backend,
-                                   journal=self.journal, mode="auto",
-                                   node_name=self.sim.node)
-            self.mounter.gate = self.gate
+        self.mounter.gate = self._build_gate()
         self.service = GPUMountService(self.allocator, self.mounter,
                                        self.sim.kube, self.sim.settings,
                                        pool=self.pool, journal=self.journal)
         return self.service.replay_journal()
+
+    def _build_gate(self):
+        """The worker's DeviceGate over this rig's journal: over the rig's
+        gate backend (``rig.gate``), or the legacy passthrough a rig built
+        without ``gate=`` runs (``rig.gate`` stays None). Both keep the
+        companion baselines in the journal."""
+        from gpumounter_tpu_torch.actuation.gate import DeviceGate
+        if self.gate_backend is None:
+            return DeviceGate(self.cgroups, None, journal=self.journal,
+                              mode="legacy", node_name=self.sim.node)
+        self.gate = DeviceGate(self.cgroups, self.gate_backend,
+                               journal=self.journal, mode="auto",
+                               node_name=self.sim.node)
+        return self.gate
 
     def fill_warm_pool(self, timeout_s: float = 30.0) -> None:
         """Drive pool reconciliation until every configured key holds its

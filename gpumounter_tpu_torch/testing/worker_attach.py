@@ -153,14 +153,11 @@ def _target_pod(box) -> dict:
 
 class _Stack:
     """The wired worker (see the module docstring); :meth:`close` stops
-    every server and thread it started."""
+    every server and thread it started. ``watch_chunk_s`` shortens the
+    informer's watch requests (the informer's default otherwise)."""
 
-    def __init__(self, root: str, enumerator: Enumerator):
-        from gpumounter_tpu_torch.actuation.agent import (
-            AgentActuator, ResidentActuationAgent)
-        from gpumounter_tpu_torch.actuation.gate import build_gate
-        from gpumounter_tpu_torch.actuation.mount import GPUMounter
-        from gpumounter_tpu_torch.actuation.nsenter import ProcRootActuator
+    def __init__(self, root: str, enumerator: Enumerator,
+                 watch_chunk_s: float | None = None):
         from gpumounter_tpu_torch.allocator import GPUAllocator
         from gpumounter_tpu_torch.k8s.client import (FakeKubeClient,
                                                      InClusterKubeClient)
@@ -170,10 +167,6 @@ class _Stack:
         from gpumounter_tpu_torch.testing.node_fixture import FixtureNode
         from gpumounter_tpu_torch.testing.sim import ClusterSim, make_gpu_node
         from gpumounter_tpu_torch.utils.config import Settings
-        from gpumounter_tpu_torch.worker.grpc_server import (WorkerClient,
-                                                             build_server)
-        from gpumounter_tpu_torch.worker.journal import AttachJournal
-        from gpumounter_tpu_torch.worker.service import GPUMountService
 
         self._closers: list[Callable[[], object]] = []
         self.settings = Settings(node_name=NODE)
@@ -196,39 +189,77 @@ class _Stack:
                               kubelet_socket_path=True,
                               enumerator=enumerator, kube=self.kube)
         self._closers.append(self.sim.close)
-        self.informer = PodInformer(self.rest,
-                                    self.settings.pool_namespace).start()
+        self.informer = PodInformer(
+            self.rest, self.settings.pool_namespace,
+            **({} if watch_chunk_s is None
+               else {"watch_chunk_s": watch_chunk_s})).start()
         self._closers.append(self.informer.stop)
         self.reads = PodCacheReads(
             self.rest, [self.informer],
             fence_timeout_s=self.settings.informer_fence_timeout_s)
         self.allocator = GPUAllocator(self.sim.collector, self.rest,
                                       self.settings, reads=self.reads)
-        self.journal = AttachJournal(os.path.join(root,
-                                                  "attach-journal.jsonl"))
+        self.enumerator = enumerator
+        self.journal_path = os.path.join(root, "attach-journal.jsonl")
+        self._worker_closers: list[Callable[[], object]] = []
+        self.boot_replay = self.start_worker()
+
+    def start_worker(self) -> dict[str, int]:
+        """Boot the worker process's own objects over the node's surviving
+        state: the journal object over the journal file, the device gate
+        (``build_gate``: the v1 backend), the resident agent with the
+        procroot actuator as its fallback, the mounter, the service and
+        its startup replay, the gRPC server and a client. Returns the
+        replay outcome counts; ``boot_ms`` splits the boot's time."""
+        from gpumounter_tpu_torch.actuation.agent import (
+            AgentActuator, ResidentActuationAgent)
+        from gpumounter_tpu_torch.actuation.gate import build_gate
+        from gpumounter_tpu_torch.actuation.mount import GPUMounter
+        from gpumounter_tpu_torch.actuation.nsenter import ProcRootActuator
+        from gpumounter_tpu_torch.worker.grpc_server import (WorkerClient,
+                                                             build_server)
+        from gpumounter_tpu_torch.worker.journal import AttachJournal
+        from gpumounter_tpu_torch.worker.service import GPUMountService
+
+        t0 = time.perf_counter()
+        self.journal = AttachJournal(self.journal_path)
         self.gate = build_gate(self.settings, self.node.controller,
                                journal=self.journal)
         self.agent = ResidentActuationAgent(self.node.host, fake_nodes=True)
-        self._closers.append(self.agent.stop)
+        self._worker_closers.append(self.agent.stop)
         actuator = AgentActuator(
             self.agent, ProcRootActuator(self.node.host, fake_nodes=True))
         self.mounter = GPUMounter(self.node.controller, actuator,
-                                  enumerator, self.node.host,
+                                  self.enumerator, self.node.host,
                                   plans=self.sim.collector.plans,
                                   gate=self.gate)
         self.service = GPUMountService(self.allocator, self.mounter,
                                        self.rest, self.settings,
                                        journal=self.journal)
-        self.boot_replay = self.service.replay_journal()
+        t1 = time.perf_counter()
+        replay = self.service.replay_journal()
+        t2 = time.perf_counter()
         self.server, port = build_server(
             self.service, port=0, address="127.0.0.1",
             max_workers=self.settings.grpc_workers, mode="parking",
             max_parked=self.settings.grpc_max_parked)
         self.server.start()
-        self._closers.append(lambda: self.server.stop(grace=0).wait())
+        self._worker_closers.append(
+            lambda server=self.server: server.stop(grace=0).wait())
         self.port = port
         self.client = WorkerClient(f"127.0.0.1:{port}", timeout_s=120.0)
-        self._closers.append(self.client.close)
+        self._worker_closers.append(self.client.close)
+        # host clock of the boot: the objects, the replay, the serving
+        self.boot_ms = {"objects": (t1 - t0) * 1e3,
+                        "replay": (t2 - t1) * 1e3,
+                        "serve": (time.perf_counter() - t2) * 1e3}
+        return replay
+
+    def stop_worker(self) -> None:
+        """The worker process dies: its gRPC server, client and agent
+        stop; nothing is cleaned up."""
+        while self._worker_closers:
+            self._worker_closers.pop()()
 
     def add_target(self, box) -> dict:
         pod = _target_pod(box)
@@ -242,6 +273,7 @@ class _Stack:
                             f"{consts.SLAVE_POD_LABEL_VALUE}"))
 
     def close(self) -> None:
+        self.stop_worker()
         for close in reversed(self._closers):
             close()
 

@@ -65,6 +65,12 @@ INCOMPLETE_STATES = ("intent", "revert_pending")
 # incomplete state so ``incomplete()``/``backlog()`` keep their
 # attach-record semantics (alerts, /journalz) unchanged.
 GATE_PENDING_STATE = "gate_pending"
+# A container's companion baseline (actuation/gate.py ``DeviceGate.held``):
+# the char nodes its /dev held before its first grant. ``baseline``
+# records live apart from the attach records (no jid, no state): they
+# never enter ``incomplete()``, ``backlog()`` or /journalz, survive
+# ``compact()`` while the container's cgroup dir exists, and a
+# ``baseline_drop`` record forgets one.
 
 
 class AttachJournal:
@@ -78,6 +84,9 @@ class AttachJournal:
         # journal order (Python dicts preserve it), so replay handles
         # crashes in the order the attaches happened.
         self._records: dict[str, dict] = {}
+        # container key (cgroup dir) -> its held (major, minor) pairs, or
+        # None where the baseline could not be read
+        self._baselines: dict[str, set[tuple[int, int]] | None] = {}
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self._load()
 
@@ -109,10 +118,18 @@ class AttachJournal:
                            "await replay", self.path, backlog)
 
     def _apply(self, event: dict) -> None:
+        kind = event.get("event")
+        if kind == "baseline":
+            held = event.get("held")
+            self._baselines[event["key"]] = (
+                None if held is None else {tuple(mm) for mm in held})
+            return
+        if kind == "baseline_drop":
+            self._baselines.pop(event["key"], None)
+            return
         jid = event.get("jid")
         if not jid:
             return
-        kind = event.get("event")
         if kind == "intent":
             record = dict(event)
             record.pop("event", None)
@@ -224,6 +241,39 @@ class AttachJournal:
                     op=op, chips=len(devices), jid=jid, cause=cause)
         return jid
 
+    def record_baseline(self, key: str,
+                        held: set[tuple[int, int]] | None) -> None:
+        """Persist a container's companion baseline, observed before its
+        first grant (``key`` = container cgroup dir; ``held`` None = not
+        readable then). A restarted worker's gate reads it back through
+        :meth:`baselines`: after an attach, /dev no longer tells a
+        companion the runtime gave from one the attach added."""
+        event = {"event": "baseline", "key": key,
+                 "held": None if held is None else sorted(held),
+                 "ts": round(time.time(), 3)}
+        with self._lock:
+            self._append(event)
+            self._apply(event)
+        EVENTS.emit("journal_baseline", key=key,
+                    held=None if held is None else len(held))
+
+    def drop_baseline(self, key: str) -> None:
+        """Forget a container's baseline (its gate state was reclaimed)."""
+        event = {"event": "baseline_drop", "key": key,
+                 "ts": round(time.time(), 3)}
+        with self._lock:
+            if key not in self._baselines:
+                return
+            self._append(event)
+            self._apply(event)
+        EVENTS.emit("journal_baseline_drop", key=key)
+
+    def baselines(self) -> dict[str, set[tuple[int, int]] | None]:
+        """Every persisted companion baseline, by container key."""
+        with self._lock:
+            return {key: None if held is None else set(held)
+                    for key, held in self._baselines.items()}
+
     def gate_commit(self, jid: str) -> None:
         self._mark(jid, "gate_commit")
 
@@ -256,13 +306,22 @@ class AttachJournal:
 
     def compact(self) -> None:
         """Rewrite the file keeping only incomplete records (terminal ones
-        are history the trace/event stores already tell better)."""
+        are history the trace/event stores already tell better) and the
+        baselines of containers whose cgroup dir still exists."""
         with self._lock:
             keep = [r for r in self._records.values()
                     if r["state"] in INCOMPLETE_STATES
                     or r["state"] == GATE_PENDING_STATE]
+            self._baselines = {key: held for key, held
+                               in self._baselines.items()
+                               if os.path.isdir(key)}
             tmp = self.path + ".tmp"
             with open(tmp, "w") as f:
+                for key, held in sorted(self._baselines.items()):
+                    f.write(json.dumps(
+                        {"event": "baseline", "key": key,
+                         "held": None if held is None else sorted(held)},
+                        sort_keys=True) + "\n")
                 for record in keep:
                     intent = {k: v for k, v in record.items()
                               if k != "state"}

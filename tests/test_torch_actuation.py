@@ -674,8 +674,9 @@ def test_detach_of_the_last_gpu_revokes_companions(tmp_path, gate):
 @pytest.mark.parametrize("gate", GATES)
 def test_unknown_baseline_keeps_companions(tmp_path, gate):
     """A container whose /dev was never observed (the gate's first touch
-    is a revoke, as after a worker restart) loses the GPU and keeps the
-    companions: denying one might break a GPU the runtime granted."""
+    is a revoke, and no journal holds its baseline) loses the GPU and
+    keeps the companions: denying one might break a GPU the runtime
+    granted."""
     rig = Rig(TORCH, tmp_path, gate=gate)
     c0 = rig.chips[0]
     rig.mounter.mount_chips(rig.pod, [c0], [c0])
