@@ -214,7 +214,28 @@ Phases, each printing one JSON line on stdout:
      and after the plans (its launches reported here, not in the kernels
      line); the chaos invariants at every step, fallbacks 0, the phase
      under 60 s;
- 19. the kernels line (each entry names the device function and the line
+ 19. worker_surface — what the worker serves in a GPU cluster, on the
+     worker of phase 11 (``gpumounter_tpu_torch/testing/worker_surface.py``):
+     a self-signed certificate carrying ``gpu-mounter-worker`` made under
+     ``build/worker_surface``, the worker served over mTLS and dialed by
+     IP with that name verified, a client without a certificate of its
+     own and a plaintext client both refused; a Pod of two
+     containers (``main``, ``sidecar``) into both of which ``AddGPU`` puts
+     the card's node (the host node's ``st_rdev``) and the companions once,
+     granted by the v1 gate in both; a CUDA holder in the sidecar named by
+     ``GPUStatus`` over mTLS and by the master's ``/gpustatus`` (the
+     master dialing the worker over mTLS), the master echoing a supplied
+     ``X-Request-Id``, ``RemoveGPU`` answering ``GPUBusy`` with the
+     holder's pid, the forced detach killing it and leaving no node or
+     rule in either container; the in-pod ``flash_fwd`` from the sidecar
+     after a re-attach (its launches reported here); 30 ``AddGPU`` +
+     ``RemoveGPU`` pairs over mTLS within fds +3, threads +2, empty lock
+     tables, a drained event queue, and the apiserver and kubelet
+     requests per pair of tests/test_torch_round_trip_budget.py; 20 pairs
+     through the master over mTLS beside 20 through a master over
+     plaintext (host-clock medians, min, max, gateway and worker spans);
+     fallbacks 0, the phase under 60 s;
+ 20. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -1762,6 +1783,40 @@ def worker_chaos(card: str) -> dict:
             "ok": all(checks.values())}
 
 
+WORKER_SURFACE_DIR = os.path.join(REPO, "build", "worker_surface")
+SURFACE_LIMIT_S = 60.0
+
+
+def worker_surface(card: str) -> dict:
+    """What the worker serves in a GPU cluster, on this machine's card
+    (``testing/worker_surface.py``): mTLS dialed by IP, a Pod of two
+    containers, a CUDA holder in the sidecar named by ``GPUStatus`` and
+    the master's ``/gpustatus``, the forced detach, the in-pod proof from
+    the sidecar, and a storm over mTLS within the leak thresholds and the
+    request budgets, then mTLS pairs timed beside plaintext ones. The
+    card's UUID must be one nvidia-smi names, and the phase must stay
+    under a minute."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.master_attach import cuda_proof
+    from gpumounter_tpu_torch.testing.worker_attach import cuda_holder
+    from gpumounter_tpu_torch.testing.worker_surface import \
+        run_worker_surface
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    report = run_worker_surface(WORKER_SURFACE_DIR,
+                                PyEnumerator(HostPaths()), cuda_holder,
+                                cuda_proof)
+    checks = report["checks"]
+    uuid = report.get("card", {}).get("uuid")
+    checks["card_is_an_nvidia_smi_uuid"] = uuid in smi_uuids
+    checks["in_pod_pinned_to_the_card"] = \
+        report.get("in_pod", {}).get("visible") == uuid
+    checks["phase_under_a_minute"] = report["phase_s"] < SURFACE_LIMIT_S
+    return {"nvidia_smi": card, **report, "checks": checks,
+            "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1979,6 +2034,7 @@ def main() -> int:
     phase("defrag", lambda: defrag(card))
     phase("operator", lambda: operator(card))
     phase("chaos", lambda: worker_chaos(card))
+    phase("worker_surface", lambda: worker_surface(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

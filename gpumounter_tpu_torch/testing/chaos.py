@@ -670,6 +670,31 @@ def assert_slice_invariants(broker, sims, kube=None, store=None,
             f"{[r.txn_id for r in leftovers]}"
 
 
+def assert_checkpoint_invariants(root: str) -> None:
+    """The sharded-checkpoint durability contract of
+    ``torchcheck/drain.py``, checkable at any instant of a transition:
+
+    1. If anything ever committed, ``LATEST`` names a generation directory
+       that still exists: no checkpoint is deleted while it is the sole
+       surviving copy (pruning runs only in the commit path, after the
+       successor is durable).
+    2. The committed generation validates end to end: its manifest is
+       present and well formed, and every shard it names is present with
+       its size and checksum, so what a crashed member would restore at
+       its next boot is whole.
+    """
+    from gpumounter_tpu_torch.torchcheck import drain as drain_lib
+    latest = drain_lib.latest_generation(root)
+    if latest is None:
+        return                    # nothing ever committed: vacuous
+    gens = drain_lib.list_generations(root)
+    assert latest in gens, \
+        f"LATEST names gen-{latest} but only {gens} exist under " \
+        f"{root}: the sole surviving copy was deleted"
+    manifest = drain_lib._load_manifest(root, latest)
+    drain_lib._verify_shards(root, latest, manifest)
+
+
 def assert_invariants(rig, expected_uuids: set[str],
                       owner: str = "workload",
                       namespace: str = "default",

@@ -150,6 +150,10 @@ class HttpApiserver:
                     return self._json(e.status or 500, {"message": str(e)})
 
             def do_DELETE(self):
+                # the client's DeleteOptions body is read before the reply:
+                # a socket closed with bytes unread answers with a RST,
+                # which can reach the client before the reply does
+                self.rfile.read(int(self.headers.get("Content-Length") or 0))
                 parts = urlparse(self.path).path.strip("/").split("/")
                 resource = ("configmaps" if parts[4:5] == ["configmaps"]
                             else "pods")

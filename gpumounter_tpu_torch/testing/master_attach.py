@@ -114,17 +114,45 @@ def _http(method: str, url: str, body: bytes | None = None,
         return status, text
 
 
-class _MasterStack:
-    """The worker of :mod:`.worker_attach` with its health sidecar and the
-    master in front; :meth:`close` stops every server and thread."""
+class Master:
+    """The master as ``master/main.py`` builds it, in front of a worker of
+    :mod:`.worker_attach`: a ``MasterGateway`` with its ``AttachBroker``
+    and ``WorkerDirectory`` over the worker's apiserver facade (the
+    worker's pod carries its gRPC port), served over HTTP.
+    ``worker_client_factory`` dials the worker (plaintext by default)."""
 
-    def __init__(self, root: str, enumerator: Enumerator):
+    def __init__(self, worker: _Stack, worker_client_factory=None,
+                 worker_tracez_base=None):
         from gpumounter_tpu_torch.k8s.client import InClusterKubeClient
         from gpumounter_tpu_torch.master.admission import (AttachBroker,
                                                            BrokerConfig)
         from gpumounter_tpu_torch.master.discovery import WorkerDirectory
         from gpumounter_tpu_torch.master.gateway import MasterGateway
         from gpumounter_tpu_torch.testing.sim import worker_pod
+        from gpumounter_tpu_torch.worker.grpc_server import WorkerClient
+
+        worker.kube.put_pod(worker_pod(NODE, "127.0.0.1",
+                                       grpc_port=worker.port))
+        self.kube = InClusterKubeClient(host=worker.facade.base,
+                                        sa_dir=worker.sa_dir)
+        self.gateway = MasterGateway(
+            self.kube, WorkerDirectory(self.kube),
+            worker_client_factory=worker_client_factory or WorkerClient,
+            worker_tracez_base=worker_tracez_base,
+            broker=AttachBroker(self.kube,
+                                BrokerConfig.from_settings(worker.settings)))
+        self.http = self.gateway.serve(port=0, address="127.0.0.1")
+        self.base = f"http://127.0.0.1:{self.http.server_port}"
+
+    def close(self) -> None:
+        self.http.shutdown()
+
+
+class _MasterStack:
+    """The worker of :mod:`.worker_attach` with its health sidecar and the
+    master in front; :meth:`close` stops every server and thread."""
+
+    def __init__(self, root: str, enumerator: Enumerator):
         from gpumounter_tpu_torch.worker.main import start_health_server
 
         self.worker = _Stack(root, enumerator)
@@ -135,19 +163,11 @@ class _MasterStack:
             **self._sidecar_state())
         self._closers.append(self.health.shutdown)
         health_base = f"http://127.0.0.1:{self.health.server_port}"
-        self.worker.kube.put_pod(worker_pod(NODE, "127.0.0.1",
-                                            grpc_port=self.worker.port))
-        self.kube = InClusterKubeClient(host=self.worker.facade.base,
-                                        sa_dir=self.worker.sa_dir)
-        settings = self.worker.settings
-        self.gateway = MasterGateway(
-            self.kube, WorkerDirectory(self.kube),
-            worker_tracez_base=lambda target: health_base,
-            broker=AttachBroker(self.kube,
-                                BrokerConfig.from_settings(settings)))
-        self.http = self.gateway.serve(port=0, address="127.0.0.1")
-        self._closers.append(self.http.shutdown)
-        self.base = f"http://127.0.0.1:{self.http.server_port}"
+        master = Master(self.worker,
+                        worker_tracez_base=lambda target: health_base)
+        self._closers.append(master.close)
+        self.kube, self.gateway = master.kube, master.gateway
+        self.http, self.base = master.http, master.base
 
     def _sidecar_state(self) -> dict:
         """Extra state for the worker's health sidecar (``usage``,

@@ -21,6 +21,7 @@ enumerator's own ``/proc``.
     mounter = node.mounter(collector.enumerator, collector.plans)
     mounter.mount_chips(box.pod, gpus, gpus)
     box.nodes()        # {"nvidia1": (195, 1), "nvidiactl": (195, 255), ...}
+    side = box.add_container("sidecar", pids=[other_pid])
 """
 
 from __future__ import annotations
@@ -38,21 +39,35 @@ from gpumounter_tpu_torch.utils.config import HostPaths, Settings
 
 
 class FixtureContainer:
-    """The only container of Pod ``default/<name>`` on a
-    :class:`FixtureNode`."""
+    """One container of Pod ``default/<name>`` on a :class:`FixtureNode`:
+    its first, ``main``, or another that :meth:`add_container` puts in the
+    same Pod, each with its own cgroup directory and root."""
 
     def __init__(self, node: "FixtureNode", name: str, pids: list[int],
-                 held: list[tuple[str, int, int]] = ()):
+                 held: list[tuple[str, int, int]] = (),
+                 pod: dict | None = None, container: str = "main"):
+        self.node = node
+        self.name = name
+        self.container = container
         digest = hashlib.sha256(name.encode()).hexdigest()
-        self.container_id = f"containerd://{digest}"
-        self.pod = {
-            "metadata": {"name": name, "namespace": "default",
-                         "uid": f"{digest[:8]}-{digest[8:12]}-{digest[12:16]}"
-                                f"-{digest[16:20]}-{digest[20:32]}"},
-            "spec": {"containers": [{"name": "main"}]},
-            "status": {"qosClass": "BestEffort", "containerStatuses": [
-                {"name": "main", "containerID": self.container_id}]},
-        }
+        if pod is None:
+            self.container_id = f"containerd://{digest}"
+            self.pod = {
+                "metadata": {"name": name, "namespace": "default",
+                             "uid": f"{digest[:8]}-{digest[8:12]}-"
+                                    f"{digest[12:16]}-{digest[16:20]}-"
+                                    f"{digest[20:32]}"},
+                "spec": {"containers": [{"name": container}]},
+                "status": {"qosClass": "BestEffort", "containerStatuses": [
+                    {"name": container, "containerID": self.container_id}]},
+            }
+        else:
+            self.container_id = "containerd://" + hashlib.sha256(
+                f"{name}/{container}".encode()).hexdigest()
+            self.pod = pod
+            pod["spec"]["containers"].append({"name": container})
+            pod["status"]["containerStatuses"].append(
+                {"name": container, "containerID": self.container_id})
         self.cgroup_dir = node.controller.container_dir(self.pod,
                                                         self.container_id)
         os.makedirs(self.cgroup_dir)
@@ -65,6 +80,14 @@ class FixtureContainer:
             open(target, "w").close()
             with open(target + ".majmin", "w") as f:
                 f.write(f"{major}:{minor}")
+
+    def add_container(self, container: str, pids: list[int],
+                      held: list[tuple[str, int, int]] = ()
+                      ) -> "FixtureContainer":
+        """Another container of this container's Pod (a sidecar): its own
+        cgroup directory, processes and root."""
+        return FixtureContainer(self.node, self.name, pids, held,
+                                pod=self.pod, container=container)
 
     def set_pids(self, pids: list[int]) -> None:
         """The container's processes, the first one its root's owner."""
@@ -112,9 +135,10 @@ class FixtureNode:
 
     def container(self, name: str, pids: list[int],
                   held: list[tuple[str, int, int]] = ()) -> FixtureContainer:
-        """A container of Pod ``default/<name>`` whose first PID owns its
-        root; ``held`` are the (path, major, minor) nodes its runtime gave
-        it."""
+        """The ``main`` container of Pod ``default/<name>``, whose first PID
+        owns its root; ``held`` are the (path, major, minor) nodes its
+        runtime gave it. :meth:`FixtureContainer.add_container` adds
+        another container to the Pod."""
         return FixtureContainer(self, name, pids, held)
 
     def mounter(self, enumerator: Enumerator,

@@ -154,10 +154,13 @@ def _target_pod(box) -> dict:
 class _Stack:
     """The wired worker (see the module docstring); :meth:`close` stops
     every server and thread it started. ``watch_chunk_s`` shortens the
-    informer's watch requests (the informer's default otherwise)."""
+    informer's watch requests (the informer's default otherwise); ``tls``
+    (a ``worker.grpc_server.TlsConfig``) serves the worker over TLS and
+    dials it with the same material, as ``worker/main.py`` and
+    ``master/main.py`` do from ``TPU_MOUNTER_TLS_*``."""
 
     def __init__(self, root: str, enumerator: Enumerator,
-                 watch_chunk_s: float | None = None):
+                 watch_chunk_s: float | None = None, tls=None):
         from gpumounter_tpu_torch.allocator import GPUAllocator
         from gpumounter_tpu_torch.k8s.client import (FakeKubeClient,
                                                      InClusterKubeClient)
@@ -169,6 +172,7 @@ class _Stack:
         from gpumounter_tpu_torch.utils.config import Settings
 
         self._closers: list[Callable[[], object]] = []
+        self.tls = tls
         self.settings = Settings(node_name=NODE)
         self.node = FixtureNode(root)
         self.settings.host = self.node.host
@@ -242,12 +246,13 @@ class _Stack:
         self.server, port = build_server(
             self.service, port=0, address="127.0.0.1",
             max_workers=self.settings.grpc_workers, mode="parking",
-            max_parked=self.settings.grpc_max_parked)
+            max_parked=self.settings.grpc_max_parked, tls=self.tls)
         self.server.start()
         self._worker_closers.append(
             lambda server=self.server: server.stop(grace=0).wait())
         self.port = port
-        self.client = WorkerClient(f"127.0.0.1:{port}", timeout_s=120.0)
+        self.client = WorkerClient(f"127.0.0.1:{port}", timeout_s=120.0,
+                                   tls=self.tls)
         self._worker_closers.append(self.client.close)
         # host clock of the boot: the objects, the replay, the serving
         self.boot_ms = {"objects": (t1 - t0) * 1e3,

@@ -24,6 +24,7 @@ import torch
 
 from gpumounter_tpu.jaxcheck import drain as jdrain
 from gpumounter_tpu.testing.chaos import assert_checkpoint_invariants
+from gpumounter_tpu_torch.testing import chaos as tchaos
 from gpumounter_tpu_torch.torchcheck import dist as tdist
 from gpumounter_tpu_torch.torchcheck import drain as drain_lib
 from gpumounter_tpu_torch.torchcheck import elastic as telastic
@@ -208,6 +209,53 @@ def test_restore_without_specs_returns_host_tree(tmp_path):
         host["matrix"].numpy(),
         np.arange(32, dtype=np.float32).reshape(8, 4))
     assert set(timings) == {"read_verify_s", "unpickle_assemble_s"}
+
+
+def _tear(root, how):
+    """Break a committed root the way a crash or a bad disk would."""
+    gen = os.path.join(root, f"gen-{drain_lib.latest_generation(root)}")
+    shard = os.path.join(gen, drain_lib._shard_name(0, 1))
+    if how == "torn_latest":
+        with open(os.path.join(root, "LATEST"), "w") as f:
+            f.write("gen-9\n")
+    elif how == "missing_shard":
+        os.remove(shard)
+    elif how == "truncated_shard":
+        with open(shard, "r+b") as f:
+            f.truncate(8)
+    elif how == "no_manifest":
+        os.remove(os.path.join(gen, "manifest.json"))
+    elif how == "never_committed":
+        shutil.rmtree(root)
+        os.makedirs(root)
+
+
+def _checked(check, root) -> str:
+    try:
+        check(root)
+        return "ok"
+    except Exception as e:              # the outcome is compared by kind
+        return type(e).__name__
+
+
+@pytest.mark.parametrize("how,want", [
+    ("committed", "ok"), ("two_generations", "ok"),
+    ("never_committed", "ok"), ("torn_latest", "AssertionError"),
+    ("missing_shard", "TornShardError"),
+    ("truncated_shard", "TornShardError"),
+    ("no_manifest", "ManifestError")])
+def test_checkpoint_invariants_agree_with_the_control_planes(tmp_path, how,
+                                                             want):
+    """The port's ``testing/chaos.assert_checkpoint_invariants`` and the
+    JAX package's give the same verdict on the same port roots."""
+    root = str(tmp_path / "ckpt")
+    _drain(root, 1)
+    if how == "two_generations":
+        _drain(root, 2, scale=2.0)
+    else:
+        _tear(root, how)
+    assert _checked(tchaos.assert_checkpoint_invariants, root) == want
+    assert _checked(assert_checkpoint_invariants, root) == want
 
 
 def test_commit_keeps_current_plus_previous_generation_only(tmp_path):

@@ -1,10 +1,12 @@
 """A bf16 train state on the card survives the sharded drain and restore
-bitwise, in a world of one over NCCL (the card's side of
+bitwise, in a world of one over NCCL, and its root meets the checkpoint
+invariants of ``testing/chaos.py`` (the card's side of
 ``tests/test_torch_drain.py``; this file imports no jax)."""
 
 import pytest
 import torch
 
+from gpumounter_tpu_torch.testing.chaos import assert_checkpoint_invariants
 from gpumounter_tpu_torch.torchcheck import drain as drain_lib
 from gpumounter_tpu_torch.torchcheck import elastic
 from gpumounter_tpu_torch.torchcheck import federation as fed
@@ -40,6 +42,7 @@ def test_bf16_cuda_state_survives_sharded_drain_and_restore(
     root = str(tmp_path / "ckpt")
     drain_lib.drain_sharded(ttrain.state_tree(state), root, 1, specs=specs,
                             mesh=mesh)
+    assert_checkpoint_invariants(root)
     # the drained values (the live tensors move on with the next step)
     tree = drain_lib._map(lambda x: x.clone() if isinstance(
         x, torch.Tensor) else x, ttrain.state_tree(state))

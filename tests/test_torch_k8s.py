@@ -14,7 +14,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 
-from tests.torch_control_plane import BOTH, IDS
+from tests.torch_control_plane import BOTH, IDS, TORCH
 
 NS = "pool"
 
@@ -195,6 +195,38 @@ def test_rest_transcripts_agree(tmp_path):
         finally:
             server.close()
     assert runs["jax"] == runs["torch"]
+
+
+def test_facade_reads_a_delete_body_before_it_replies():
+    """The port's facade reads a DELETE's DeleteOptions body before it
+    replies and closes: a reply sent over the unread body is followed by a
+    RST, which can reach the client first and read as a reset connection
+    (the control plane's facade still replies at once: ROADMAP Queue 3)."""
+    from gpumounter_tpu_torch.testing.http_apiserver import HttpApiserver
+    kube = TORCH.mod("k8s.client").FakeKubeClient()
+    kube.put_pod(_pod("p1"))
+    server = HttpApiserver(kube)
+    body = json.dumps({"gracePeriodSeconds": 0}).encode()
+    port = int(server.base.rsplit(":", 1)[1])
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=5) as s:
+            s.sendall(f"DELETE /api/v1/namespaces/{NS}/pods/p1 HTTP/1.1\r\n"
+                      f"Host: x\r\nContent-Length: {len(body)}\r\n"
+                      "Content-Type: application/json\r\n"
+                      "Connection: close\r\n\r\n".encode())
+            s.settimeout(0.3)
+            with pytest.raises(socket.timeout):
+                s.recv(1)                   # no reply before the body
+            s.settimeout(5)
+            s.sendall(body)
+            reply = b""
+            while chunk := s.recv(65536):   # ends at the server's FIN
+                reply += chunk
+    finally:
+        server.close()
+    assert reply.startswith(b"HTTP/1.1 200"), reply
+    with pytest.raises(TORCH.errors.PodNotFoundError):
+        kube.get_pod(NS, "p1")
 
 
 def _fast_policy(pkg):

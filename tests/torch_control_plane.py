@@ -17,19 +17,19 @@ import re
 import types
 
 PACKAGES = {"jax": "gpumounter_tpu", "torch": "gpumounter_tpu_torch"}
-MODULES = ("actuation.agent", "actuation.cgroup", "actuation.gate",
-           "actuation.nsenter", "allocator", "allocator.allocator",
-           "allocator.topology", "device.fake", "k8s.client", "k8s.informer",
-           "k8s.objects", "testing.chaos", "testing.http_apiserver",
-           "master.admission", "master.discovery", "master.election",
-           "master.fleet", "master.nodehealth", "master.slice",
-           "master.slicetxn",
-           "master.store",
+MODULES = ("actuation.agent", "actuation.bpf", "actuation.cgroup",
+           "actuation.gate", "actuation.mount", "actuation.nsenter",
+           "allocator", "allocator.allocator", "allocator.topology",
+           "device.enumerator", "device.fake", "device.model", "k8s.client",
+           "k8s.informer", "k8s.objects", "testing.chaos",
+           "testing.http_apiserver", "master.admission", "master.discovery",
+           "master.election", "master.fleet", "master.nodehealth",
+           "master.slice", "master.slicetxn", "master.store",
            "master.gateway", "master.httpfront", "master.lease",
-           "master.shardring", "master.waiterindex", "testing.sim",
-           "utils.config", "utils.consts", "utils.errors", "utils.events",
-           "utils.metrics", "utils.parking", "utils.retry", "utils.slo",
-           "utils.trace", "worker.drain", "worker.grpc_server",
+           "master.main", "master.shardring", "master.waiterindex",
+           "testing.sim", "utils.config", "utils.consts", "utils.errors",
+           "utils.events", "utils.metrics", "utils.parking", "utils.retry",
+           "utils.slo", "utils.trace", "worker.drain", "worker.grpc_server",
            "worker.journal", "worker.main", "worker.pool",
            "worker.reconciler", "worker.service")
 
@@ -83,6 +83,20 @@ class Pkg(types.SimpleNamespace):
     def status(self, service, pod, namespace):
         return getattr(service, f"{self.dev}_status")(pod, namespace)
 
+    def fmt(self, text: str) -> str:
+        """``text`` with ``{dev}``/``{DEV}`` filled in by this package's
+        device: routes, method names, result and event names."""
+        return text.format(dev=self.dev, DEV=self.dev.upper())
+
+    def call(self, obj, name: str, *args, **kwargs):
+        """``obj.<name>(...)`` with ``name`` filled in by :meth:`fmt`."""
+        return getattr(obj, self.fmt(name))(*args, **kwargs)
+
+    def node(self, i: int) -> str:
+        """Device ``i``'s node on the host (``/dev/accelN``,
+        ``/dev/nvidiaN``)."""
+        return f"/dev/{self.node_prefix}{i}"
+
     def uuid(self, i: int) -> str:
         """The fake enumerator's uuid of device ``i``."""
         return self.mod("device.fake").make_chips(i + 1)[i].uuid
@@ -95,6 +109,10 @@ def _load(name: str) -> Pkg:
     dev = "gpu" if torch else "tpu"
     return Pkg(
         name=name, root=root, modules=modules, dev=dev,
+        node_prefix="nvidia" if torch else "accel",
+        major=195 if torch else 120,
+        status_key="gpus" if torch else "chips",
+        san=modules["worker.grpc_server"].DEFAULT_TLS_SERVER_NAME,
         Allocator=getattr(modules["allocator"],
                           "GPUAllocator" if torch else "TPUAllocator"),
         Service=getattr(modules["worker.service"],
@@ -150,3 +168,16 @@ def norm_text(text: str) -> str:
     text = re.sub(r"GPU-([0-9a-f]{8})-[0-9a-f-]+",
                   lambda m: f"dev{int(m.group(1), 16)}", text)
     return re.sub(r"\b(TPU|GPU)(?=[A-Z][a-z])", "<DEV>", text)
+
+
+def sharing_devices(pkg: Pkg, n: int) -> list:
+    """``n`` devices of ``pkg`` that share one companion node: the control
+    plane's chips share ``/dev/vfio/vfio`` (10:196) as its tests build
+    them; every fake GPU shares the port's companions anyway."""
+    if pkg.name == "torch":
+        return pkg.mod("device.fake").make_chips(n)
+    model = pkg.mod("device.model")
+    comp = model.CompanionNode("/dev/vfio/vfio", 10, 196)
+    return [model.TPUChip(index=i, device_path=f"/dev/vfio/{i}", major=511,
+                          minor=i, uuid=str(i), companions=(comp,))
+            for i in range(n)]
