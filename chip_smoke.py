@@ -48,12 +48,26 @@ Phases, each printing one JSON line on stdout:
      drained host copy), and one step whose loss must be within 1e-3 of
      the reference; the drain and restore split into their parts, bytes,
      GB/s, free disk and peak device memory; then the legacy
-     ``drain_restore_cycle`` on the probe's toy config. (b) with two or
-     more cards, ``MemberRunner`` processes (one per card) re-federate
-     over NCCL at full width on the Megatron split (mesh (1, 1, n)), riding
-     resizes 2 -> 4 -> 2 on four cards (1 -> 2 -> 1 on two) against a
-     stand-in for the master's ``/slicez`` and ``/slice/barrier``
-     (``SliceMaster``, served here): step numbers strictly increase,
+     ``drain_restore_cycle`` on the probe's toy config. (c) on one card, a
+     CUDA-free pod process (``elastic.ElasticSupervisor``) with one local
+     rank process on the card, at the same full width: the worker's
+     mesh-generation file stamped at generation 1 and then 2 (one chip
+     each), the rank draining and exiting on the agreed bump, a fresh rank
+     restoring and continuing; step numbers strictly increase, the
+     fingerprint and every leaf (SHA-256 of each whole leaf) are bitwise
+     across the respawn, the first loss after it is within 1e-3 of the old
+     rank's uninterrupted step, the old rank's pid is gone, the new rank
+     runs on the card's nvidia-smi UUID, and the pod process never
+     initialised CUDA (not among ``nvidia-smi --query-compute-apps``, no
+     ``/dev/nvidia*`` open); the downtime in parts (drain, the old rank's
+     exit, the spawn to the new rank's interpreter and device, the process
+     group, the restore, the first step). (b) with two or more cards,
+     ``MemberRunner`` pod processes re-federate over NCCL at full width on
+     the Megatron split (mesh (1, 1, n)), riding 1 -> 2 -> 1 members
+     against a stand-in for the master's ``/slicez`` and ``/slice/barrier``
+     (``SliceMaster``, served here): members of two cards each (two local
+     rank processes; worlds of 2 -> 4 -> 2 GPUs) on four or more cards, of
+     one card each on two or three; step numbers strictly increase,
      fingerprints survive each transition, the loss goes down, and the
      members resized out exit 0. On one card (b) is reported degenerate;
   8. selftest — ``gpu_selftest`` in a child process, its nine checks;
@@ -248,6 +262,7 @@ last line of stderr names each failed phase's false checks or error).
 
 from __future__ import annotations
 
+import functools
 import gc
 import http.server
 import json
@@ -1004,12 +1019,14 @@ class SliceMaster:
     one slice group: ``GET /slicez`` (the group's generation and chip
     count) and ``/slice/barrier`` (POST join, GET status), answering the
     JSON ``master/slicetxn.py`` answers (``barrier_join``,
-    ``barrier_status``, ``_barrier_payload``) with one device per member.
+    ``barrier_status``, ``_barrier_payload``) with ``per_member`` devices
+    per member.
     ``resize`` bumps the generation and arms the barrier for the new
     membership, as ``POST /slice/resize`` does. Served on localhost."""
 
-    def __init__(self, group: str, members: list[str]):
+    def __init__(self, group: str, members: list[str], per_member: int = 1):
         self.group = group
+        self.per_member = per_member
         self.lock = threading.Lock()
         self.generation = 0
         self.resize(members)
@@ -1065,7 +1082,7 @@ class SliceMaster:
         with self.lock:
             return {"groups": {self.group: {
                 "generation": self.generation,
-                "chips": len(self.members)}}}
+                "chips": len(self.members) * self.per_member}}}
 
     def _payload(self) -> dict:
         payload = {"group": self.group, "generation": self.generation,
@@ -1114,24 +1131,24 @@ class SliceMaster:
         self.server.server_close()
 
 
-def federation_member(index: int, base: str, group: str, root: str,
-                      status_path: str, stop_path: str) -> None:
-    """One member process of part (b): the flagship config on the
-    Megatron split (the model dim absorbs the world), the flash step,
-    card ``index``."""
+def federation_member(index: int, cards: str, base: str, group: str,
+                      root: str, status_path: str, stop_path: str) -> None:
+    """One member pod process of part (b): the flagship config on the
+    Megatron split (the model dim absorbs the world), the flash step, one
+    rank per card of ``cards`` (``cuda:i[,j]``). CUDA-free itself."""
     import faulthandler
     faulthandler.enable()           # a native crash prints its stacks
     sys.path.insert(0, REPO)
     from gpumounter_tpu_torch.torchcheck import federation, perf, train
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     runner = federation.MemberRunner(
         base, group, f"default/member-{index}", root,
-        device=f"cuda:{index}", status_path=status_path, stop_path=stop_path,
+        local_devices=cards.count(",") + 1, device=cards,
+        status_path=status_path, stop_path=stop_path,
         barrier_timeout_s=300.0, lr=3e-4, seq_len=1024, batch=8,
         cfg=perf.mxu_config(), data=1, seq=1, model=None,
-        step_factory=lambda cfg, mesh: train.make_train_step(
-            cfg, mesh, attn_impl="flash"))
+        step_factory=functools.partial(train.make_train_step,
+                                       attn_impl="flash"))
     sys.exit(runner.run())
 
 
@@ -1149,17 +1166,19 @@ RESIZE_WAIT_S = 240.0
 
 
 def refederate_cards(count: int, card: str) -> dict:
-    """Part (b) of the elastic phase: member processes, one per card,
-    ride resizes n/2 -> n -> n/2 (n = 4 uses 2 -> 4 -> 2, n = 2 uses
-    1 -> 2 -> 1) at full width over NCCL, against :class:`SliceMaster`."""
-    small = max(1, min(count, 4) // 2)
-    large = 2 * small
+    """Part (b) of the elastic phase: member pod processes ride resizes
+    1 -> 2 -> 1 members at full width over NCCL, against
+    :class:`SliceMaster`: members of two cards each on four or more cards
+    (worlds of 2 -> 4 -> 2 GPUs), of one card each on two or three (1 ->
+    2 -> 1)."""
+    per = 2 if count >= 4 else 1
+    small, large = 1, 2
     root = os.path.join(ELASTIC_DIR, "federation")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     free_before = shutil.disk_usage(root).free
     names = [f"default/member-{i}" for i in range(large)]
-    master = SliceMaster("txn-chip-smoke", names[:small])
+    master = SliceMaster("txn-chip-smoke", names[:small], per)
     ctx = multiprocessing.get_context("spawn")
     procs: dict[int, multiprocessing.Process] = {}
     status = {i: os.path.join(root, f"member-{i}.jsonl")
@@ -1167,8 +1186,10 @@ def refederate_cards(count: int, card: str) -> dict:
     stop = os.path.join(root, "stop")
 
     def spawn(i):
+        cards = ",".join(str(i * per + j) for j in range(per))
         procs[i] = ctx.Process(target=federation_member, args=(
-            i, master.base, master.group, root, status[i], stop))
+            i, f"cuda:{cards}", master.base, master.group, root, status[i],
+            stop))
         procs[i].start()
 
     def steps(i, generation):
@@ -1230,12 +1251,14 @@ def refederate_cards(count: int, card: str) -> dict:
             "fingerprint_before": begin["fingerprint"],
             "fingerprint_after": done["fingerprint"],
             "downtime_s": (first["unix"] - begin["unix"]) if first else None,
+            "downtime_parts_s": done.get("downtime_s"),
             "member0_timings_s": done.get("timings")})
     losses = [r["loss"] for r in step_rows]
     checks = {
         "steps_strictly_increase": numbers == sorted(set(numbers))
         and len(numbers) >= 6,
-        "worlds": worlds == {1: small, 2: large, 3: small},
+        "worlds": worlds == {1: small * per, 2: large * per,
+                             3: small * per},
         "fingerprints_preserved": len(transitions) == 2 and all(
             t["fingerprint_before"] == t["fingerprint_after"]
             for t in transitions),
@@ -1247,9 +1270,183 @@ def refederate_cards(count: int, card: str) -> dict:
         "all_exit_0": all(code == 0 for code in exits.values())}
     shutil.rmtree(root, ignore_errors=True)
     return {"nvidia_smi": card, "resizes": [small, large, small],
+            "cards_per_member": per,
             "free_disk_bytes_before": free_before, "steps": numbers,
             "losses": losses, "worlds": worlds, "transitions": transitions,
             "exit_codes": exits, "checks": checks,
+            "ok": all(checks.values())}
+
+
+def stamp_generation(path: str, generation: int, chips: list[str]) -> None:
+    """Write a pod's mesh-generation file as the worker stamps it on each
+    actuation (``worker/service.py`` ``_stamp_mesh_generation``: the same
+    JSON, fsynced, renamed into place)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"generation": generation, "chips": sorted(chips)}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def ride_supervisor(root: str, signal_path: str, status_path: str,
+                    stop_path: str, result_path: str) -> None:
+    """The pod process of part (c): ``ElasticSupervisor`` riding the
+    generation file with one local rank on the card at full width (the
+    flagship state, the flash step), every leaf digested across the
+    respawn. Writes its exit code and whether it ever initialised CUDA."""
+    import faulthandler
+    faulthandler.enable()
+    sys.path.insert(0, REPO)
+    from gpumounter_tpu_torch.torchcheck import elastic, perf, train
+
+    cfg = perf.mxu_config()
+    ride = elastic.ElasticSupervisor(
+        cfg, elastic.FileSignal(signal_path), os.path.join(root, "ckpt"),
+        device="cuda", batches=elastic.SeededBatches(8, 1024, cfg.vocab),
+        lr=3e-4, step_factory=functools.partial(train.make_train_step,
+                                                attn_impl="flash"),
+        status_path=status_path, stop_path=stop_path, verify=True)
+    rc = ride.run()
+    with open(result_path, "w") as f:
+        json.dump({"rc": rc, "pid": os.getpid(),
+                   "cuda_initialized": torch.cuda.is_initialized()}, f)
+    sys.exit(rc)
+
+
+def compute_app_pids() -> list[int]:
+    """The pids ``nvidia-smi`` lists as holding a compute context."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return [int(x) for x in proc.stdout.split() if x.strip().isdigit()]
+
+
+def gpu_fds(pid: int) -> list[str]:
+    """The ``/dev/nvidia*`` files process ``pid`` holds open."""
+    out = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                out.append(target)
+    except OSError:
+        pass
+    return sorted(set(out))
+
+
+def alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _uuid(text: str) -> str:
+    return text.strip().lower().removeprefix("gpu-")
+
+
+# How long part (c) waits for each stage of the ride.
+RESPAWN_WAIT_S = 300.0
+
+
+def respawn_one_card(card: str) -> dict:
+    """Part (c) of the elastic phase: a CUDA-free pod process
+    (``elastic.ElasticSupervisor``) with one local rank on the card rides
+    a generation bump of the worker's file (1 -> 2, one chip -> one chip)
+    at full width: its rank drains and exits, a fresh rank restores and
+    continues. Checked: steps continue, every leaf bitwise across the
+    respawn, the first loss after it within 1e-3 of the old rank's
+    uninterrupted step, the old rank gone, the new one on the card's
+    UUID, the pod process without a CUDA context; the downtime in parts."""
+    root = os.path.join(ELASTIC_DIR, "respawn")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    uuid = nvidia_smi("uuid").splitlines()[0].strip()
+    paths = {name: os.path.join(root, name) for name in (
+        "signal.json", "status.jsonl", "stop", "result.json")}
+    stamp_generation(paths["signal.json"], 1, [uuid])
+    ctx = multiprocessing.get_context("spawn")
+    sup = ctx.Process(target=ride_supervisor, args=(
+        root, paths["signal.json"], paths["status.jsonl"], paths["stop"],
+        paths["result.json"]))
+
+    def records(phase=None):
+        return [r for r in _records(paths["status.jsonl"])
+                if phase is None or r["phase"] == phase]
+
+    def steps(generation):
+        return [r for r in records("step") if r["generation"] == generation]
+
+    def wait_for(what, predicate):
+        deadline = time.monotonic() + RESPAWN_WAIT_S
+        while not predicate():
+            if sup.exitcode is not None:
+                raise RuntimeError(f"the pod process exited with "
+                                   f"{sup.exitcode} while waiting for "
+                                   f"{what}: {records('error')}")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no {what} within {RESPAWN_WAIT_S:.0f}s")
+            time.sleep(0.2)
+
+    sup.start()
+    try:
+        wait_for("generation-1 steps", lambda: len(steps(1)) >= 2)
+        apps_before = compute_app_pids()
+        fds_before = gpu_fds(sup.pid)
+        stamp_generation(paths["signal.json"], 2, [uuid])
+        wait_for("generation-2 steps", lambda: len(steps(2)) >= 2)
+        apps_after = compute_app_pids()
+        fds_after = gpu_fds(sup.pid)
+        with open(paths["stop"], "w") as f:
+            f.write("1")
+        sup.join(timeout=RESPAWN_WAIT_S)
+    finally:
+        if sup.is_alive():
+            sup.terminate()
+            sup.join(timeout=30)
+    with open(paths["result.json"]) as f:
+        result = json.load(f)
+    started, begin = records("started")[0], records("reshape_begin")[0]
+    done = records("reshape_done")[0]
+    numbers = [r["step"] for r in records("step")]
+    losses = [r["loss"] for r in records("step")]
+    after = steps(2)[0]
+    parts = dict(done["downtime_s"], first_step=after["unix"] - done["unix"])
+    err = abs(after["loss"] - done["reference_loss"])
+    checks = {
+        "supervisor_exit_0": result["rc"] == 0 and sup.exitcode == 0,
+        "steps_strictly_increase": numbers == sorted(set(numbers))
+        and len(numbers) >= 4 and done["step"] == begin["step"],
+        "fingerprint_bitwise": done["fingerprint"] == begin["fingerprint"],
+        "leaves_bitwise": bool(begin["digests"])
+        and done["digests"] == begin["digests"],
+        "loss_within_1e-3": err <= 1e-3,
+        "old_rank_gone": started["pid"] != done["pid"]
+        and not alive(started["pid"]),
+        "new_rank_on_the_card": _uuid(done.get("uuid", "")) == _uuid(uuid),
+        "supervisor_without_cuda": not result["cuda_initialized"]
+        and sup.pid not in apps_before + apps_after
+        and not fds_before + fds_after,
+        "old_rank_exited_before_the_spawn":
+            done["downtime_s"]["old_rank_exit"] >= 0}
+    shutil.rmtree(root, ignore_errors=True)
+    return {"nvidia_smi": card, "uuid": uuid, "steps": numbers,
+            "losses": losses, "reference_loss": done["reference_loss"],
+            "resumed_loss": after["loss"], "abs_err": err, "tol": 1e-3,
+            "leaves": len(begin["digests"]),
+            "pids": {"supervisor": sup.pid, "old_rank": started["pid"],
+                     "new_rank": done["pid"]},
+            "compute_apps": {"before": apps_before, "after": apps_after},
+            "supervisor_gpu_fds": fds_before + fds_after,
+            "downtime_parts_s": parts,
+            "downtime_s": sum(parts.values()),
+            "reshape_begin_to_first_step_s": after["unix"] - begin["unix"],
+            "timings": done["timings"], "checks": checks,
             "ok": all(checks.values())}
 
 
@@ -1984,6 +2181,8 @@ def main() -> int:
         launches["elastic"] = one_card.get("launches", {})
         torch.cuda.empty_cache()
         legacy = part(legacy_cycle_toy)
+        torch.cuda.empty_cache()
+        respawn = part(respawn_one_card, card)
         count = torch.cuda.device_count()
         if count > 1:
             cards = part(refederate_cards, count, card)
@@ -1992,8 +2191,10 @@ def main() -> int:
                      "reason": "re-federation over NCCL needs two or more "
                                "cards; this machine has one"}
         return {"n_devices": count, "one_card": one_card,
-                "legacy_cycle": legacy, "multi_card": cards,
-                "ok": bool(one_card["ok"] and legacy["ok"] and cards["ok"])}
+                "legacy_cycle": legacy, "respawn": respawn,
+                "multi_card": cards,
+                "ok": bool(one_card["ok"] and legacy["ok"]
+                           and respawn["ok"] and cards["ok"])}
 
     def selftest():
         from gpumounter_tpu_torch.torchcheck import gpu_selftest

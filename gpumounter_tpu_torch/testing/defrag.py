@@ -284,9 +284,12 @@ def _usage_proof(stack: _DefragStack, gpu: GPUDevice,
     checks["load_child_ready"] = ready
     if not ready:
         return
-    # the warm-up's own launches settle before the baseline
+    # the warm-up's own launches settle before the baseline: the sampler
+    # must see the card not busy (duty at most its idle epsilon, below
+    # IDLE_DUTY_MAX), or the load's start makes no idle-to-busy edge for
+    # the opens count
     settled = _wait(lambda: _fresh_card_row(stack, gpu.uuid).get(
-        "duty", 1.0) <= IDLE_DUTY_MAX, WAIT_S, POLL_S)
+        "busy") is False, WAIT_S, POLL_S)
     opens0 = _fresh_card_row(stack, gpu.uuid).get("opens", 0)
     load.stdin.write("go\n")
     load.stdin.flush()

@@ -24,12 +24,15 @@ collective here returns its input unchanged for it.
 
 from __future__ import annotations
 
+import ctypes
 import datetime
 import faulthandler
+import math
 import multiprocessing
 import os
 import queue
 import shutil
+import signal
 import tempfile
 import time
 import traceback
@@ -299,37 +302,103 @@ def exclusive_scan(x: torch.Tensor, group) -> tuple[torch.Tensor,
     return stacked[:dist.get_rank(group)].sum(0), stacked.sum(0)
 
 
+def local_world_size() -> int:
+    """How many ranks this rank's pod process drives (``LOCAL_WORLD_SIZE``,
+    set by :class:`LocalWorld`; 1 for a process that joined alone)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+
+
+def check_local_sizes() -> list[int]:
+    """Every pod process of the world drives the same number of devices
+    (a rank's global rank is process index x N + local): all-gathers each
+    rank's :func:`local_world_size` and raises RuntimeError naming them on
+    a mismatch. A collective: every rank of the world calls it."""
+    sizes: list = [None] * dist.get_world_size()
+    dist.all_gather_object(sizes, local_world_size())
+    if len(set(sizes)) != 1:
+        raise RuntimeError(
+            f"the processes of this world drive different numbers of "
+            f"devices (local sizes by rank: {sizes}); every member must "
+            "drive the same N")
+    return sizes
+
+
 # -- worlds of processes --------------------------------------------------------
 
 # A rank still running this long before its world's deadline dumps every
 # thread's stack to stderr, so a stuck rank names where it waits.
 STACK_DUMP_LEAD_S = 10.0
 
+# prctl(2): the signal a process gets when the thread that started it exits
+PR_SET_PDEATHSIG = 1
 
-def _world_main(rank: int, world: int, rendezvous: str, backend: str,
-                timeout_s: float, inbox, results) -> None:
-    """One process of :func:`run_world`."""
-    faulthandler.dump_traceback_later(
-        max(timeout_s - STACK_DUMP_LEAD_S, 1.0), exit=False)
+# This rank process's start-up, written once by the launcher (unix times):
+# ``main`` once its interpreter and torch are loaded, ``device`` once its
+# device is ready (a CUDA context made on it), ``joined`` once it has joined
+# the world. A supervisor reads it through the rank's own reports.
+STARTUP: dict[str, float] = {}
+
+
+def _die_with_parent(parent_pid: int) -> None:
+    """Have the kernel SIGKILL this process when the thread that started
+    it exits, so that a rank never outlives its supervisor (a SIGKILLed
+    pod process would otherwise leave ranks holding GPUs and a world);
+    exit at once when that parent is already gone."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
+    if os.getppid() != parent_pid:
+        os._exit(1)
+
+
+def _world_main(local: int, n_local: int, offset: int, world: int,
+                rendezvous: str, backend: str, visible: str | None,
+                timeout_s: float | None, parent_pid: int, shared,
+                inbox, results) -> None:
+    """One rank process of a :class:`LocalWorld`: global rank ``offset +
+    local`` of ``world``, on ``cuda:<local>`` (NCCL) or the CPU (gloo)."""
+    STARTUP["main"] = time.time()
+    _die_with_parent(parent_pid)
+    if timeout_s is not None:
+        faulthandler.dump_traceback_later(
+            max(timeout_s - STACK_DUMP_LEAD_S, 1.0), exit=False)
+    rank = offset + local
     try:
+        # before the first CUDA call, in this process only: the
+        # supervisor's own environment is never written
+        if visible is not None:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+        os.environ.update(LOCAL_RANK=str(local),
+                          LOCAL_WORLD_SIZE=str(n_local), RANK=str(rank),
+                          WORLD_SIZE=str(world),
+                          GROUP_RANK=str(offset // n_local))
         target, args = inbox.get(timeout=timeout_s)
         if backend == "nccl":
-            torch.cuda.set_device(rank)
-            device = torch.device("cuda", rank)
+            torch.cuda.set_device(local)
+            device = torch.device("cuda", local)
+            torch.empty(1, device=device)          # the CUDA context
         else:
             device = torch.device("cpu")
-            # the ranks share the host's cores
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+            # the ranks share the host's cores (a pod's own
+            # OMP_NUM_THREADS, which torch reads at start, wins)
+            if not os.environ.get("OMP_NUM_THREADS"):
+                torch.set_num_threads(
+                    max(1, (os.cpu_count() or 1) // n_local))
+        STARTUP["device"] = time.time()
+        # NCCL makes its communicators lazily, at the first collective
         dist.init_process_group(
-            backend, init_method=f"file://{rendezvous}", world_size=world,
-            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+            backend, init_method=rendezvous, world_size=world, rank=rank,
+            timeout=datetime.timedelta(
+                seconds=timeout_s or WORLD_TIMEOUT_S))
+        STARTUP["joined"] = time.time()
         try:
-            result = target(device, *args)
+            result = (target(device, *args) if shared is None
+                      else target(device, shared, *args))
         finally:
             dist.destroy_process_group()
-        results.put((rank, result, None))
+        results.put((local, result, None))
     except Exception:    # reported to the parent, which raises it
-        results.put((rank, None, traceback.format_exc()))
+        results.put((local, None, traceback.format_exc()))
     finally:
         faulthandler.cancel_dump_traceback_later()
 
@@ -358,13 +427,216 @@ def _close(q) -> None:
     q.join_thread()
 
 
+def _exit_text(exitcode: int) -> str:
+    """A process's end as words: its exit code, or the signal that killed
+    it (``multiprocessing`` reports signal N as exit code -N)."""
+    if exitcode < 0:
+        try:
+            name = signal.Signals(-exitcode).name
+        except ValueError:
+            name = f"signal {-exitcode}"
+        return f"was killed by {name} (signal {-exitcode})"
+    return f"exited with code {exitcode}"
+
+
+class LocalWorld:
+    """``n_local`` fresh rank processes that are global ranks
+    ``rank_offset`` … ``rank_offset + n_local - 1`` of a
+    ``torch.distributed`` world of ``world_size``: the part of a world one
+    pod process drives, one process per device. Each runs
+    ``target(device, *args)`` (``target(device, shared, *args)`` when
+    ``shared`` is given: an object of ``multiprocessing`` primitives, which
+    reach a process only as it starts) on ``cuda:<local>`` under NCCL, or
+    on the CPU under gloo, and reports its (picklable) result.
+
+    ``rendezvous`` is ``host:port``, served by global rank 0 (whichever
+    pod runs it); None gives a world of this process's ranks alone a
+    file store in a directory of its own. ``visible`` is the ranks'
+    ``CUDA_VISIBLE_DEVICES``, set in each child before its first CUDA call
+    and never in this process, so that the next world of the same
+    supervisor sees the GPUs attached since (this process need never touch
+    CUDA). The ranks die with the thread that starts them
+    (``PR_SET_PDEATHSIG``).
+
+    A rank that fails, or exits without a report, fails the world within
+    ``FAILURE_GRACE_S``: :meth:`result` raises with each rank's traceback,
+    or its exit code or signal. ``timeout_s`` bounds the world (None: a
+    world that runs until its ranks return, as a training world does).
+    :meth:`close` stops every rank still running."""
+
+    def __init__(self, n_local: int, target: Callable, args: tuple = (), *,
+                 device: str | torch.device = "cuda",
+                 world_size: int | None = None, rank_offset: int = 0,
+                 rendezvous: str | None = None, visible: str | None = None,
+                 shared=None, timeout_s: float | None = WORLD_TIMEOUT_S):
+        world_size = n_local if world_size is None else world_size
+        if n_local < 1:
+            raise ValueError(f"a world needs at least one process, got "
+                             f"{n_local}")
+        if rank_offset < 0 or rank_offset + n_local > world_size:
+            last = rank_offset + n_local - 1
+            raise ValueError(f"ranks {rank_offset}..{last} are not in a "
+                             f"world of {world_size}")
+        if rendezvous is None and world_size != n_local:
+            raise ValueError("a world that spans processes needs a "
+                             "rendezvous address")
+        self.n_local, self.world_size = n_local, world_size
+        self.rank_offset = rank_offset
+        self.target, self.args = target, args
+        self.backend = ("nccl" if torch.device(device).type == "cuda"
+                        else "gloo")
+        self.rendezvous, self.visible = rendezvous, visible
+        self.shared, self.timeout_s = shared, timeout_s
+        self.procs: list = []
+        self.pids: list[int] = []
+        self.got: dict[int, Any] = {}
+        self.errors: dict[int, str] = {}
+        self._store_dir: str | None = None
+        self._deadline = math.inf
+        self._ends: dict[int, int] = {}     # exit codes of closed ranks
+        self._closed = False
+
+    def start(self) -> "LocalWorld":
+        ctx = multiprocessing.get_context("spawn")
+        self._inbox, self._results = ctx.Queue(), ctx.Queue()
+        if self.rendezvous is None:
+            # a file store in a directory of this world's own: a TCP port
+            # picked before the ranks bind it could be picked by another
+            # world started meanwhile, whose ranks would then join this one
+            self._store_dir = tempfile.mkdtemp(prefix="run_world-")
+            init = "file://" + os.path.join(self._store_dir, "store")
+        else:
+            init = f"tcp://{self.rendezvous}"
+        self.procs = [ctx.Process(target=_world_main, args=(
+            r, self.n_local, self.rank_offset, self.world_size, init,
+            self.backend, self.visible, self.timeout_s, os.getpid(),
+            self.shared, self._inbox, self._results), daemon=True)
+            for r in range(self.n_local)]
+        self.spawned = time.time()
+        for p in self.procs:
+            p.start()
+        self.pids = [p.pid for p in self.procs]
+        # The work goes by queue, not in the processes' arguments: a spawned
+        # child unpickles its arguments as it reads them, importing torch
+        # halfway, and the parent's write of large arguments would wait for
+        # each child in turn.
+        for _ in self.procs:
+            self._inbox.put((self.target, self.args))
+        if self.timeout_s is not None:
+            self._deadline = time.monotonic() + self.timeout_s
+        return self
+
+    def _ended(self) -> bool:
+        return (len(self.got) + len(self.errors) == self.n_local
+                or time.monotonic() >= self._deadline)
+
+    def poll(self, timeout_s: float = 1.0) -> bool:
+        """Take a report that arrives within ``timeout_s`` (none waits:
+        0); returns whether the world has ended — every rank reported, a
+        rank failed and the others' grace is up, or the deadline passed."""
+        if self._ended():
+            return True
+        try:
+            local, result, err = (self._results.get(timeout=timeout_s)
+                                  if timeout_s > 0
+                                  else self._results.get_nowait())
+        except queue.Empty:
+            # a process gone without a report (killed, or a crash below
+            # Python) leaves its peers waiting for it in a rendezvous or a
+            # collective: fail now, not at the deadline
+            for r, p in enumerate(self.procs):
+                if p.exitcode is not None and r not in self.got \
+                        and r not in self.errors and self._results.empty():
+                    self._fail(r, f"{_exit_text(p.exitcode)} before "
+                                  "reporting")
+            return self._ended()
+        if err is None:
+            self.got[local] = result
+        else:
+            self._fail(local, err)
+        return self._ended()
+
+    def _fail(self, local: int, text: str) -> None:
+        self.errors[local] = text
+        self._deadline = min(self._deadline,
+                             time.monotonic() + FAILURE_GRACE_S)
+
+    def exits(self) -> dict[int, dict]:
+        """Each rank's pid and end so far, by global rank: its exit code,
+        and the signal that killed it (None while it runs)."""
+        out = {}
+        for r, p in enumerate(self.procs):
+            code = self._ends.get(r) if r in self._ends else p.exitcode
+            out[self.rank_offset + r] = {
+                "pid": self.pids[r], "exitcode": code,
+                "signal": (signal.Signals(-code).name
+                           if code is not None and code < 0 else None)}
+        return out
+
+    def result(self) -> list[Any]:
+        """Each rank's result in local order; raises RuntimeError with the
+        failed ranks' tracebacks (or exit codes and signals), TimeoutError
+        when a rank has not reported by the deadline."""
+        n = self.n_local
+        if self.errors:
+            raise RuntimeError(
+                f"{len(self.errors)} of {n} ranks failed:\n" + "\n".join(
+                    f"-- rank {self.rank_offset + r}:\n{tb}"
+                    for r, tb in sorted(self.errors.items())))
+        missing = sorted(self.rank_offset + r for r in set(range(n))
+                         - set(self.got))
+        if missing:
+            raise TimeoutError(
+                f"ranks {missing} of a world of {self.world_size} did not "
+                f"report within {self.timeout_s:.0f}s")
+        return [self.got[r] for r in range(n)]
+
+    def wait(self) -> list[Any]:
+        """Block until the world ends; :meth:`result`."""
+        while not self.poll(1.0):
+            pass
+        return self.result()
+
+    def close(self) -> None:
+        """Stop every rank still running and release the queues and the
+        rendezvous directory, so that a world leaves no process, thread or
+        pipe behind. Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        for p in self.procs:
+            p.join(timeout=5 if len(self.got) == self.n_local else 0.1)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        for r, p in enumerate(self.procs):
+            if r not in self._ends and not p.is_alive():
+                self._ends[r] = p.exitcode
+                p.close()         # its sentinel pipe
+        if self.procs:
+            _close(self._inbox)
+            _close(self._results)
+        if self._store_dir is not None:
+            shutil.rmtree(self._store_dir, ignore_errors=True)
+
+    def __enter__(self) -> "LocalWorld":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def run_world(n: int, target: Callable, args: tuple = (),
               device: str | torch.device = "cuda",
               timeout_s: float = WORLD_TIMEOUT_S) -> list[Any]:
     """Run ``target(device, *args)`` in ``n`` fresh processes that form one
     ``torch.distributed`` world — NCCL with one GPU each (rank r on
     ``cuda:r``) for ``device="cuda"``, gloo for ``"cpu"`` — and return each
-    rank's (picklable) result, in rank order.
+    rank's (picklable) result, in rank order: a :class:`LocalWorld` of
+    ranks 0 … n - 1 of a world of n.
 
     ``target`` must be importable by name (a module-level function); the
     processes are spawned, so they import what it needs afresh. Raises
@@ -378,70 +650,6 @@ def run_world(n: int, target: Callable, args: tuple = (),
     if dev.type == "cuda" and n > torch.cuda.device_count():
         raise ValueError(f"a world of {n} GPUs asked for, "
                          f"{torch.cuda.device_count()} visible")
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    ctx = multiprocessing.get_context("spawn")
-    inbox, results = ctx.Queue(), ctx.Queue()
-    # The rendezvous is a file store in a directory of this world's own: a
-    # TCP port picked before the ranks bind it could be picked by another
-    # world started meanwhile, whose ranks would then join this one.
-    store_dir = tempfile.mkdtemp(prefix="run_world-")
-    rendezvous = os.path.join(store_dir, "store")
-    procs = [ctx.Process(target=_world_main,
-                         args=(r, n, rendezvous, backend, timeout_s, inbox,
-                               results), daemon=True)
-             for r in range(n)]
-    for p in procs:
-        p.start()
-    # The work goes by queue, not in the processes' arguments: a spawned
-    # child unpickles its arguments as it reads them, importing torch
-    # halfway, and the parent's write of large arguments would wait for
-    # each child in turn.
-    for _ in procs:
-        inbox.put((target, args))
-    got: dict[int, Any] = {}
-    errors: dict[int, str] = {}
-    deadline = time.monotonic() + timeout_s
-    try:
-        while len(got) + len(errors) < n and time.monotonic() < deadline:
-            try:
-                rank, result, err = results.get(timeout=1.0)
-            except queue.Empty:
-                # a process gone without a report (killed, or a crash
-                # below Python) leaves its peers waiting for it in a
-                # rendezvous or a collective: fail now, not at the deadline
-                for r, p in enumerate(procs):
-                    if p.exitcode is not None and r not in got \
-                            and r not in errors and results.empty():
-                        errors[r] = (f"exited with code {p.exitcode} "
-                                     "before reporting")
-                        deadline = min(deadline,
-                                       time.monotonic() + FAILURE_GRACE_S)
-                continue
-            if err is None:
-                got[rank] = result
-            else:
-                errors[rank] = err
-                deadline = min(deadline, time.monotonic() + FAILURE_GRACE_S)
-    finally:
-        for p in procs:
-            p.join(timeout=5 if len(got) == n else 0.1)
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-            if not p.is_alive():
-                p.close()         # its sentinel pipe
-        _close(inbox)
-        _close(results)
-        shutil.rmtree(store_dir, ignore_errors=True)
-    if errors:
-        raise RuntimeError(
-            f"{len(errors)} of {n} ranks failed:\n" + "\n".join(
-                f"-- rank {r}:\n{tb}" for r, tb in sorted(errors.items())))
-    missing = sorted(set(range(n)) - set(got))
-    if missing:
-        raise TimeoutError(f"ranks {missing} of a world of {n} did not report "
-                           f"within {timeout_s:.0f}s")
-    return [got[r] for r in range(n)]
+    with LocalWorld(n, target, args, device=dev,
+                    timeout_s=timeout_s) as world:
+        return world.wait()

@@ -32,17 +32,26 @@ incomplete until the control plane moves the generation again, and the
 survivors waiting on the stale barrier see it superseded, retarget and
 re-form.
 
-Departure from the JAX member: a port member is ONE process on ONE device
-(NCCL on its card, or gloo on the CPU). A pod's device count is its
-member count, so ``--local-devices`` must be 1.
+Processes: a member is one pod process that drives every device its pod
+holds, as the JAX member does (``--local-devices N``). It is a CUDA-free
+supervisor (:class:`~.elastic.RankSupervisor`): it polls ``/slicez`` once
+per step of its ranks, joins the barrier once per world with the address
+its local rank 0 will serve, and for each plan spawns N fresh rank
+processes, global ranks ``member index x N + local`` of a world of
+``num_processes x N`` (the plan's ``num_processes`` stays the member
+count). The ranks build or restore, step, and on an agreed bump drain and
+exit; the member then joins the next barrier and spawns the next world's
+ranks, which see the GPUs attached since (CUDA fixes a process's device
+set at its first CUDA call). A rank that dies takes its member with it.
 
 CLI (one per member process)::
 
     python -m gpumounter_tpu_torch.torchcheck.federation \\
         --master http://MASTER --group GROUP --member ns/pod \\
-        --checkpoint-root /ckpt --status-file out.jsonl [--device cuda:N]
+        --checkpoint-root /ckpt --status-file out.jsonl \\
+        [--local-devices N] [--device cuda]
 
-``--device cpu`` is the hardware-free member mode (gloo).
+``--device cpu`` is the hardware-free member mode (N gloo ranks).
 """
 
 from __future__ import annotations
@@ -59,7 +68,6 @@ import urllib.request
 import torch
 import torch.distributed as dist
 
-from gpumounter_tpu_torch.torchcheck import drain as drain_lib
 from gpumounter_tpu_torch.torchcheck import elastic as elastic_lib
 from gpumounter_tpu_torch.torchcheck import model as model_lib
 from gpumounter_tpu_torch.torchcheck import probe as probe_lib
@@ -126,38 +134,22 @@ def free_port(host: str = "127.0.0.1") -> int:
 
 
 def check_local_devices(local_devices: int) -> None:
-    """A port member is one process on one device: a pod with N devices
-    runs N members."""
-    if local_devices != 1:
-        raise ValueError(
-            f"a member drives exactly one device (got --local-devices "
-            f"{local_devices}); run one member process per device")
+    """A member drives N >= 1 devices, one rank process each (on the GPU
+    :func:`~.probe.select_gpus` also refuses more than its pod's device
+    nodes show)."""
+    if local_devices < 1:
+        raise ValueError(f"a member drives at least one device (got "
+                         f"--local-devices {local_devices})")
 
 
 def configure_cpu_world(local_devices: int = 1) -> torch.device:
-    """The hardware-free member mode: this member computes on the CPU and
-    its worlds use gloo (``probe.initialize_distributed`` with
-    ``device="cpu"``). Returns the device."""
+    """The hardware-free member mode: this member's ranks compute on the
+    CPU and its worlds use gloo. Returns the device."""
     check_local_devices(local_devices)
     return torch.device("cpu")
 
 
-class WorldAgreement:
-    """Collective agreement on an observed value: every process
-    contributes what it read and the MINIMUM wins (an all-reduce MIN of
-    an int64), so no process begins draining while a peer that has not
-    yet seen the bump is about to block in a training-step collective.
-    The tensor lives on the member's device (NCCL reduces CUDA tensors
-    only). A world of one: the identity."""
-
-    def agree(self, value: int) -> int:
-        if not dist.is_initialized() or dist.get_world_size() <= 1:
-            return int(value)
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if dist.get_backend() == "nccl" else torch.device("cpu"))
-        x = torch.tensor([int(value)], dtype=torch.int64, device=device)
-        dist.all_reduce(x, op=dist.ReduceOp.MIN)
-        return int(x.item())
+WorldAgreement = elastic_lib.WorldAgreement
 
 
 # -- the barrier client --------------------------------------------------------
@@ -307,6 +299,18 @@ class Refederator:
                 "coordinator": f"{self.bind_host}:{free_port(self.bind_host)}",
                 "num_processes": 1, "members": [None]})
             return None
+        plan = self.plan_for(generation)
+        self._initialize(plan)
+        return plan
+
+    def plan_for(self, generation: int) -> dict:
+        """The barrier protocol alone: join the barrier for
+        ``generation`` with a rendezvous address on ``bind_host`` (the one
+        this member's first rank serves if it is member 0), wait for it to
+        complete, and return the plan with its ``generation`` — chasing a
+        superseded barrier to the newest generation. Raises
+        :class:`MembershipRefusedError` when this member was resized
+        out."""
         target = int(generation)
         while True:
             self._hold(target)
@@ -341,7 +345,11 @@ class Refederator:
                     target)
                 continue
             break
-        self._initialize(plan)
+        members = list(plan.get("members") or [])
+        if self.barrier.member not in members:
+            raise MembershipRefusedError(
+                f"{self.barrier.member} missing from completed plan "
+                f"{members}")
         plan = dict(plan)
         plan["generation"] = target
         self.plan = plan
@@ -390,55 +398,26 @@ class Refederator:
 # -- the federated harness -----------------------------------------------------
 
 
-class FederatedElasticHarness(elastic_lib.ElasticHarness):
-    """The multi-process :class:`~.elastic.ElasticHarness`: drain streams
-    per-process shards (``drain.drain_sharded``), teardown runs the
-    re-federation protocol (:class:`Refederator`), restore reshards the
-    committed checkpoint onto the new world's mesh — falling back to the
-    last-good generation on any typed checkpoint failure, never a
-    partial tree."""
+class FederatedElasticHarness(elastic_lib.ShardedElasticHarness):
+    """The multi-process :class:`~.elastic.ElasticHarness` in one process
+    per world: drain streams per-rank shards, teardown runs the
+    re-federation protocol in this process (:class:`Refederator`),
+    restore reshards the committed checkpoint onto the new world's mesh
+    (:class:`~.elastic.ShardedElasticHarness`). A member's ranks instead
+    drain and exit, and the member forms the next world
+    (:class:`MemberRunner`)."""
 
     def __init__(self, cfg, generation_fn, chips_fn, *,
                  refederator: Refederator, checkpoint_root: str,
                  lr: float = 3e-4, step_factory=None,
                  data: int | None = 1, seq: int | None = None,
                  model: int | None = 1, seed: int = 0):
-        super().__init__(cfg, generation_fn, chips_fn, lr=lr,
-                         step_factory=step_factory, reinitialize=None,
-                         checkpoint_path=os.path.join(
-                             checkpoint_root, "legacy.ckpt"),
-                         data=data, seq=seq, model=model, seed=seed,
+        super().__init__(cfg, generation_fn, chips_fn,
+                         checkpoint_root=checkpoint_root, lr=lr,
+                         step_factory=step_factory, data=data, seq=seq,
+                         model=model, seed=seed,
                          device=refederator.device.type)
         self.refederator = refederator
-        self.checkpoint_root = checkpoint_root
-        self.restored_generation: int | None = None
-        self.rolled_back = False
-        self._target_generation: int | None = None
-        self.timings: dict[str, dict] = {}
-
-    # -- hooks -----------------------------------------------------------------
-
-    def _resumable(self) -> bool:
-        return drain_lib.latest_generation(self.checkpoint_root) \
-            is not None
-
-    def _sync_fn(self):
-        """The world's barrier, for ``drain_sharded`` (None in a world
-        of one); under NCCL on this rank's current device."""
-        if not dist.is_initialized() or dist.get_world_size() <= 1:
-            return None
-        if dist.get_backend() != "nccl":
-            return dist.barrier
-        return lambda: dist.barrier(
-            device_ids=[torch.cuda.current_device()])
-
-    def _drain(self, generation) -> None:
-        self.timings["drain"] = {}
-        drain_lib.drain_sharded(
-            train_lib.state_tree(self.state), self.checkpoint_root,
-            int(generation), specs=elastic_lib.state_specs(self.cfg),
-            mesh=self.mesh, sync_fn=self._sync_fn(),
-            timings=self.timings["drain"])
 
     def _teardown(self, generation):
         plan = self.refederator.refederate(int(generation))
@@ -446,52 +425,26 @@ class FederatedElasticHarness(elastic_lib.ElasticHarness):
                                    if plan else int(generation))
         return self._target_generation
 
-    def _restore(self, specs):
-        self.rolled_back = False
-        self.timings["restore"] = {}
-        try:
-            tree = drain_lib.restore_sharded(
-                self.checkpoint_root, specs, mesh=self.mesh,
-                device=self.device,
-                expect_generation=self._target_generation,
-                timings=self.timings["restore"])
-            self.restored_generation = drain_lib.latest_generation(
-                self.checkpoint_root)
-            return tree
-        except drain_lib.NoCheckpointError:
-            raise
-        except drain_lib.CheckpointError as e:
-            # torn shard / corrupt manifest / generation mismatch: the
-            # LAST-GOOD generation is the rollback target — restored
-            # whole or not at all
-            logger.warning("checkpoint restore failed (%s); rolling "
-                           "back to the last-good generation", e)
-            tree, generation = drain_lib.restore_last_good(
-                self.checkpoint_root, specs, mesh=self.mesh,
-                device=self.device)
-            self.restored_generation = generation
-            self.rolled_back = True
-            return tree
-
 
 # -- the member process (CLI) --------------------------------------------------
 
 
-class MemberRunner:
-    """One slice member's training process, end to end: wait for the
-    slice, federate, (resume-)restore, then step — reshaping through
-    the full protocol on every generation bump, exiting cleanly when
-    resized out. The status file (JSONL, one object per event) is the
+class MemberRunner(elastic_lib.RankSupervisor):
+    """One slice member's pod process, end to end: wait for the slice,
+    join each generation's barrier once, and run the plan's world through
+    ``local_devices`` rank processes (:class:`~.elastic.RankSupervisor`):
+    they build or resume, step, and drain on every agreed bump; the member
+    exits cleanly when resized out. The status file (JSONL) is the
     observable the multi-process e2e asserts on: steps, losses,
-    generations, world sizes, restore fingerprints.
+    generations, world sizes (members x N), restore fingerprints.
 
     The mesh is ``data`` x ``seq`` x ``model`` with the dim left ``None``
     absorbing the world ("seq" by default; "model" for the Megatron
-    split); ``step_factory(cfg, mesh)`` builds the step."""
+    split); ``step_factory(cfg, mesh)`` (picklable) builds the step."""
 
     def __init__(self, master_base: str, group: str, member: str,
                  checkpoint_root: str, *, local_devices: int = 1,
-                 device: str | torch.device = "cuda",
+                 device: str = "cuda",
                  status_path: str | None = None,
                  stop_path: str | None = None,
                  hold_dir: str | None = None,
@@ -500,138 +453,72 @@ class MemberRunner:
                  lr: float = 1e-2, seq_len: int = 48, batch: int = 4,
                  cfg=None, step_factory=None,
                  data: int | None = 1, seq: int | None = None,
-                 model: int | None = 1):
+                 model: int | None = 1, dev_root: str = "/dev",
+                 proc_root: str = "/proc"):
         check_local_devices(local_devices)
+        cfg = cfg or model_lib.ModelConfig(
+            vocab=64, d_model=32, n_heads=4, n_layers=1, d_ff=64)
+        super().__init__(
+            member, cfg, elastic_lib.MasterSliceSignal(master_base, group),
+            checkpoint_root, device=str(device),
+            batches=elastic_lib.SeededBatches(batch, seq_len, cfg.vocab),
+            status_path=status_path, stop_path=stop_path,
+            max_steps=max_steps, lr=lr,
+            step_factory=step_factory or _default_step_factory, data=data,
+            seq=seq, model=model, dev_root=dev_root, proc_root=proc_root)
+        if self.on_gpu:      # refuse now: no GPU, or fewer than N
+            probe_lib.select_gpus(self.device, local_devices, dev_root,
+                                  proc_root)
         self.master_base = master_base
         self.group = group
         self.member = member
-        self.checkpoint_root = checkpoint_root
-        self.device = resolve_device(device)
-        self.status_path = status_path
-        self.stop_path = stop_path
-        self.hold_dir = hold_dir
-        self.max_steps = max_steps
+        self.local_devices = local_devices
         self.barrier_timeout_s = barrier_timeout_s
-        self.lr = lr
-        self.seq_len = seq_len
-        self.batch = batch
-        self.cfg = cfg or model_lib.ModelConfig(
-            vocab=64, d_model=32, n_heads=4, n_layers=1, d_ff=64)
-        self.step_factory = step_factory
-        self.dims = {"data": data, "seq": seq, "model": model}
-        self.signal = elastic_lib.MasterSliceSignal(master_base, group)
-        self.agreement = WorldAgreement()
-
-    def _log(self, phase: str, **fields) -> None:
-        record = {"member": self.member, "phase": phase,
-                  "unix": round(time.time(), 3), **fields}
-        if self.status_path:
-            with open(self.status_path, "a") as f:
-                f.write(json.dumps(record) + "\n")
-                f.flush()
-        logger.info("member %s: %s %s", self.member, phase, fields)
-
-    def _fingerprint(self, state) -> float:
-        # embed is replicated: every rank holds all of it
-        return float(state.model.embed.detach().float().abs().sum())
-
-    def _batch(self, step: int):
-        generator = torch.Generator().manual_seed(7_000_003 + step)
-        return train_lib.make_batch(generator, self.batch, self.seq_len,
-                                    self.cfg.vocab)
-
-    def _stopping(self) -> bool:
-        """Whether any member saw the stop file: decided collectively, so
-        every member leaves at the same loop top and none is left in a
-        collective with a peer that exited."""
-        seen = bool(self.stop_path and os.path.exists(self.stop_path))
-        return self.agreement.agree(0 if seen else 1) == 0
+        # the barrier protocol only: this process joins no world itself
+        self.refederator = Refederator(
+            BarrierClient(master_base, group, member), device="cpu",
+            barrier_timeout_s=barrier_timeout_s, hold_dir=hold_dir)
 
     def run(self) -> int:
-        """Returns the process exit code; an exception is logged to the
-        status file (the e2e reads it, not stderr) and raised."""
+        """Returns the process exit code: 0 once stopped, done or resized
+        out, 1 when a world failed (a rank died: ``error`` names each
+        rank's exit code and signal), 2 when the slice never appeared.
+        Any other exception is logged to the status file (the e2e reads
+        it, not stderr) and raised."""
         try:
             return self._run()
+        except elastic_lib.WorldFailedError:
+            return 1
         except Exception as e:
             self._log("error", message=repr(e))
             raise
-        finally:
-            probe_lib.shutdown_distributed()
 
     def _run(self) -> int:
-        deadline = time.monotonic() + self.barrier_timeout_s
-        generation = None
-        while generation is None:
-            generation = self.signal.generation()
-            if generation is None:
-                if time.monotonic() >= deadline:
-                    self._log("error", message="slice never appeared")
-                    return 2
-                time.sleep(0.2)
-        refederator = Refederator(
-            BarrierClient(self.master_base, self.group, self.member),
-            device=self.device, barrier_timeout_s=self.barrier_timeout_s,
-            hold_dir=self.hold_dir)
-        harness = FederatedElasticHarness(
-            self.cfg, self.signal.generation, self.signal.chips,
-            refederator=refederator, checkpoint_root=self.checkpoint_root,
-            lr=self.lr, step_factory=self.step_factory
-            or _default_step_factory, **self.dims)
-        try:
-            plan = refederator.refederate(int(generation))
-        except MembershipRefusedError:
-            self._log("resized_out", generation=int(generation))
-            return 0
-        harness.generation = plan["generation"] if plan \
-            else int(generation)
-        harness._target_generation = int(harness.generation)
-        harness._build(fresh=not harness._resumable())
-        self._log("started", generation=int(harness.generation),
-                  world_devices=int(harness.mesh.size()),
-                  resumed=bool(harness.restored_generation is not None),
-                  restored_generation=harness.restored_generation,
-                  fingerprint=self._fingerprint(harness.state))
-        steps = 0
+        generation = self._wait_for_generation(self.barrier_timeout_s)
+        if generation is None:
+            self._log("error", message="slice never appeared")
+            return 2
+        target = int(generation)
+        n = self.local_devices
         while True:
-            if self._stopping():
-                self._log("stopped", step=int(harness.state.step))
+            try:
+                plan = self.refederator.plan_for(target)
+            except MembershipRefusedError:
+                self._log("resized_out", generation=target,
+                          drain=(self._drained or {}).get("drain"))
                 return 0
-            observed = self.signal.generation() or harness.generation
-            agreed = self.agreement.agree(int(observed))
-            if agreed > int(harness.generation):
-                before = self._fingerprint(harness.state)
-                self._log("reshape_begin", target=agreed,
-                          step=int(harness.state.step),
-                          fingerprint=before)
-                try:
-                    harness.reshape(agreed)
-                except MembershipRefusedError:
-                    self._log("resized_out", generation=agreed,
-                              drain=harness.timings.get("drain"))
-                    return 0
-                self._log("reshape_done",
-                          generation=int(harness.generation),
-                          world_devices=int(harness.mesh.size()),
-                          restored_generation=harness.
-                          restored_generation,
-                          rolled_back=harness.rolled_back,
-                          step=int(harness.state.step),
-                          fingerprint=self._fingerprint(harness.state),
-                          timings=harness.timings)
-                # re-enter at the loop top: EVERY member's first
-                # collective in a new world must be the agreement — a
-                # survivor jumping straight into the train step while a
-                # fresh member runs its first agreement would cross
-                # collectives and deadlock
-                continue
-            loss = harness.train_step(self._batch(int(harness.state.step)))
-            steps += 1
-            self._log("step", step=int(harness.state.step), loss=loss,
-                      generation=int(harness.generation),
-                      world_devices=int(harness.mesh.size()))
-            if self.max_steps is not None and steps >= self.max_steps:
-                self._log("done", step=int(harness.state.step))
+            index = plan["members"].index(self.member)
+            world = int(plan["num_processes"]) * n
+            generation = int(plan["generation"])
+            spec = self._spec(generation, world,
+                              expect_generation=generation)
+            outcome = self._run_world(
+                spec, n, world_size=world, rank_offset=index * n,
+                rendezvous=plan["coordinator"])
+            if outcome["outcome"] != "drained":
+                self._log(outcome["outcome"], step=outcome["step"])
                 return 0
+            target = int(outcome["generation"])
 
 
 def _default_step_factory(cfg, mesh):
@@ -651,11 +538,15 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--checkpoint-root", required=True,
                         help="shared sharded-checkpoint directory")
     parser.add_argument("--local-devices", type=int, default=1,
-                        help="devices this member drives: must be 1 (one "
-                             "member process per device)")
+                        help="devices this member's pod drives, one rank "
+                             "process each (at most the GPUs its device "
+                             "nodes show)")
     parser.add_argument("--device", default="cuda",
-                        help="this member's device: cuda, cuda:N, or cpu "
-                             "(the hardware-free gloo mode)")
+                        help="cuda (the pod's GPUs), cuda:i[,j...] (named "
+                             "by their place among them), or cpu (the "
+                             "hardware-free gloo mode)")
+    parser.add_argument("--dev-root", default="/dev",
+                        help="where nvidiaN device nodes live")
     parser.add_argument("--status-file", default=None)
     parser.add_argument("--stop-file", default=None)
     parser.add_argument("--hold-dir", default=None,
@@ -669,17 +560,15 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     try:
         check_local_devices(args.local_devices)
+        runner = MemberRunner(
+            args.master, args.group, args.member, args.checkpoint_root,
+            local_devices=args.local_devices, device=args.device,
+            status_path=args.status_file, stop_path=args.stop_file,
+            hold_dir=args.hold_dir, max_steps=args.max_steps,
+            barrier_timeout_s=args.barrier_timeout, lr=args.lr,
+            seq_len=args.seq_len, dev_root=args.dev_root)
     except ValueError as e:
         parser.error(str(e))
-    if torch.device(args.device).type == "cpu":
-        configure_cpu_world(args.local_devices)
-    runner = MemberRunner(
-        args.master, args.group, args.member, args.checkpoint_root,
-        local_devices=args.local_devices, device=args.device,
-        status_path=args.status_file, stop_path=args.stop_file,
-        hold_dir=args.hold_dir, max_steps=args.max_steps,
-        barrier_timeout_s=args.barrier_timeout, lr=args.lr,
-        seq_len=args.seq_len)
     return runner.run()
 
 

@@ -22,21 +22,25 @@ UUID from the driver). The pin takes effect at a process's first CUDA
 call, so it is set before it, and re-derived between the polls of
 :func:`wait_for_devices`, whose children see each poll's pin.
 
-Multi-process bring-up (:func:`initialize_distributed`) joins this process
-to a ``torch.distributed`` world of one process per device, and
-:func:`shutdown_distributed` leaves it, so that an elastic resize can join
-a world of another size in the same process (``federation.py``). The
-probe's checks then run over that world, each process checking its own
-part.
+Multi-process bring-up: a world spans pods, and each pod's process
+drives every GPU its pod holds through one rank process per GPU
+(:class:`~.dist.LocalWorld`, :func:`run_local_probe`). The pod process
+itself never touches CUDA — a process's device set is fixed at its first
+CUDA call, so ranks spawned afresh for each world see the GPUs attached
+since. :func:`initialize_distributed` joins one rank to its world and
+:func:`shutdown_distributed` leaves it. The probe's checks then run over
+that world, each rank checking its own part.
 
 CLI:  python -m gpumounter_tpu_torch.torchcheck.probe --expect 4
       [--timeout 60] [--cpu-devices N] [--dev-root /dev]
-      [--coordinator HOST:PORT --num-processes N --process-id I]
+      [--coordinator HOST:PORT --num-processes P --process-id I]
       one JSON line; exit 0 iff the devices are there and validate, 1 when
       a check failed, 2 when the expected count was not reached in time.
-      With ``--coordinator`` this process is one rank of an N-process
-      world (NCCL; gloo with ``--cpu-devices 1``) and ``--expect`` counts
-      the world's devices.
+      With ``--coordinator`` this process is process I of P, each driving
+      N local devices (every GPU its pod's device nodes show, or
+      ``--cpu-devices N`` gloo ranks on the CPU): the world is P x N
+      ranks, global rank I x N + local, and ``--expect`` counts the
+      world's devices.
 """
 
 from __future__ import annotations
@@ -67,18 +71,23 @@ def device_summary(device: str | torch.device = "cuda",
                    cpu_devices: int = 1) -> dict[str, Any]:
     """What this process sees: the CUDA devices, or ``cpu_devices``
     worker processes' worth of CPU for ``device="cpu"``. In an initialised
-    world the count is the world's (one device per process)."""
+    world ``device_count`` is the world's, ``local_device_count`` the
+    ranks its pod process drives (``LOCAL_WORLD_SIZE``), and the process
+    index and count are the pod processes', as in the JAX summary."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         count = torch.cuda.device_count()
         names = [torch.cuda.get_device_name(i) for i in range(count)]
     else:
         count, names = cpu_devices, ["cpu"] * cpu_devices
-    summary = {"backend": dev.type, "device_count": count, "devices": names}
+    summary = {"backend": dev.type, "device_count": count,
+               "local_device_count": count, "devices": names,
+               "process_index": 0, "process_count": 1}
     if dist.is_initialized():
-        summary.update(device_count=dist.get_world_size(),
-                       process_index=dist.get_rank(),
-                       process_count=dist.get_world_size())
+        world, local = dist.get_world_size(), dist_lib.local_world_size()
+        summary.update(device_count=world, local_device_count=local,
+                       process_index=dist.get_rank() // local,
+                       process_count=world // local)
     return summary
 
 
@@ -92,13 +101,14 @@ def initialize_distributed(coordinator_address: str, num_processes: int,
     all three are required). Rank 0 serves the rendezvous at
     ``coordinator_address`` (``host:port``).
 
-    One process drives one device: NCCL with this rank on its device for
+    A rank drives one device: NCCL with this rank on its device for
     ``device="cuda"`` (``cuda:N`` names the card; without an index rank r
     takes card r modulo the visible count; it becomes the current device,
     where NCCL creates its communicators at their first collective), gloo
-    for ``device="cpu"`` — the counterpart of the JAX probe's
-    ``cpu_devices_per_process``. Returns the device this rank computes
-    on."""
+    for ``device="cpu"``. A pod process driving N devices runs N such
+    ranks (:class:`~.dist.LocalWorld` joins each; the counterpart of the
+    JAX probe's ``cpu_devices_per_process``). Returns the device this rank
+    computes on."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:
@@ -155,6 +165,65 @@ def visible_chip_indices(dev_root: str = "/dev") -> list[int] | None:
     host = HostPaths(dev_root=dev_root)
     found = [d.index for d in PyEnumerator(host, allow_fake=True).enumerate()]
     return found or None
+
+
+def pod_gpus(dev_root: str = "/dev", proc_root: str = "/proc") -> list:
+    """The GPUs this container's ``nvidiaN`` nodes show, in minor order,
+    each with its UUID: what a pod process counts its GPUs by without
+    touching CUDA. Where the driver (or NVML) names the GPUs, a node it
+    does not name is no GPU of this pod and is left out (logged), as
+    :func:`configure_visible_chips` leaves it out of the pin; with no
+    source of names (fixture trees) every node counts."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.utils.config import HostPaths
+    enumerator = PyEnumerator(HostPaths(dev_root=dev_root,
+                                        proc_root=proc_root),
+                              allow_fake=True)
+    devices = enumerator.enumerate()
+    if enumerator.uuid_source in (None, "none"):
+        return devices
+    unknown = [d.device_path for d in devices if not d.uuid]
+    if unknown:
+        logger.warning("no UUID for %s: not counted as this pod's GPUs",
+                       unknown)
+    return [d for d in devices if d.uuid]
+
+
+def rank_visibility(devices: list) -> str | None:
+    """``CUDA_VISIBLE_DEVICES`` for ranks that drive ``devices`` (rank r
+    on the r-th): their UUIDs, or None when one has none (the ranks then
+    keep the inherited setting)."""
+    if not devices or not all(d.uuid for d in devices):
+        return None
+    return ",".join(d.uuid for d in devices)
+
+
+def select_gpus(device: str, n: int, dev_root: str = "/dev",
+                proc_root: str = "/proc") -> list:
+    """The ``n`` GPUs a pod process's ranks drive, read from its device
+    nodes (no CUDA call): ``"cuda"`` takes the first ``n`` present,
+    ``"cuda:i"`` or ``"cuda:i,j,..."`` names them by their place among
+    the present ones (pods that share a host in tests). Raises
+    RuntimeError when no GPU node is present (never falls back to the
+    CPU), ValueError when fewer than ``n`` are present or named."""
+    present = pod_gpus(dev_root, proc_root)
+    if not present:
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is visible "
+            f"(no nvidiaN node under {dev_root}); pass device='cpu' to run "
+            "on the CPU")
+    _, _, named = str(device).partition(":")
+    if named:
+        places = [int(i) for i in named.split(",")]
+        if len(places) != n or max(places) >= len(present):
+            raise ValueError(
+                f"{device!r} names {len(places)} of the {len(present)} GPUs "
+                f"the pod's device nodes show; {n} local devices asked for")
+        return [present[i] for i in places]
+    if n > len(present):
+        raise ValueError(f"{n} local devices asked for, the pod's device "
+                         f"nodes show {len(present)} GPU(s)")
+    return present[:n]
 
 
 def configure_visible_chips(dev_root: str = "/dev", env: Any = None,
@@ -416,16 +485,75 @@ def run_probe(expected: int | None = None, timeout_s: float = 60.0,
     return report
 
 
+def _probe_rank(device: torch.device, expected: int | None,
+                cpu_devices: int, dev_root: str) -> dict[str, Any]:
+    """One rank of :func:`run_local_probe`: the probe over the world."""
+    dist_lib.check_local_sizes()
+    return run_probe(expected, 0.0, device=device.type,
+                     cpu_devices=cpu_devices, dev_root=dev_root)
+
+
+def run_local_probe(coordinator: str, num_processes: int, process_id: int,
+                    *, expected: int | None = None, timeout_s: float = 60.0,
+                    device: str = "cuda", cpu_devices: int = 1,
+                    dev_root: str = "/dev", proc_root: str = "/proc"
+                    ) -> dict[str, Any]:
+    """This pod process's part of a probe world of ``num_processes`` pod
+    processes: N local ranks — one per GPU its pod's device nodes show, or
+    ``cpu_devices`` gloo ranks for ``device="cpu"`` — as global ranks
+    ``process_id`` x N + local of a world of ``num_processes`` x N, rank 0
+    serving the rendezvous at ``coordinator``; each rank runs
+    :func:`run_probe` over the whole world. This process never touches
+    CUDA: it counts the device nodes (polling them until the world would
+    reach ``expected``) and pins each world's ranks to them.
+
+    Raises TimeoutError when the expected count is not reached within
+    ``timeout_s``. Returns local rank 0's report, ``ok`` only when every
+    local rank's is; a world that fails is ``{"ok": false}`` with its
+    ranks' errors."""
+    on_gpu = torch.device(device).type == "cuda"
+    deadline = time.monotonic() + timeout_s
+    while True:
+        gpus = pod_gpus(dev_root, proc_root) if on_gpu else []
+        n_local = len(gpus) if on_gpu else cpu_devices
+        world = n_local * num_processes
+        if n_local >= 1 and (not expected or world >= expected):
+            break
+        if not on_gpu or time.monotonic() >= deadline:
+            raise TimeoutError(f"expected {expected or 1} devices, a world "
+                               f"of {num_processes} x {n_local} has {world}"
+                               f" after {timeout_s}s")
+        logger.info("waiting for devices: %d local of %s", n_local, expected)
+        time.sleep(2.0)
+    ranks = dist_lib.LocalWorld(
+        n_local, _probe_rank, (expected, cpu_devices, dev_root),
+        device=device, world_size=world, rank_offset=process_id * n_local,
+        rendezvous=coordinator,
+        visible=rank_visibility(gpus) if on_gpu else None)
+    with ranks:
+        try:
+            reports = ranks.wait()
+        except (RuntimeError, TimeoutError) as e:
+            return {"ok": False, "devices": {
+                "backend": torch.device(device).type, "device_count": world,
+                "local_device_count": n_local, "process_index": process_id,
+                "process_count": num_processes}, "error": str(e)[-2000:]}
+    report = dict(reports[0])
+    report["local_ranks_ok"] = [r["ok"] for r in reports]
+    report["ok"] = all(report["local_ranks_ok"])
+    return report
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--expect", type=int, default=None,
                         help="wait until this many devices are visible")
     parser.add_argument("--timeout", type=float, default=60.0)
     parser.add_argument("--cpu-devices", type=int, default=None,
-                        help="hardware-free mode: N gloo CPU processes "
-                             "(1 with --coordinator: this rank on the CPU)")
+                        help="hardware-free mode: N gloo CPU processes (with "
+                             "--coordinator: N local ranks of this process)")
     parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                        help="rank 0's rendezvous address; enables "
+                        help="global rank 0's rendezvous address; enables "
                              "multi-process mode")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
@@ -437,27 +565,30 @@ def main(argv: list[str] | None = None) -> int:
     if args.num_processes is not None and not distributed:
         parser.error("--num-processes requires --coordinator and "
                      "--process-id")
+    if args.cpu_devices is not None and args.cpu_devices < 1:
+        parser.error(f"--cpu-devices must be at least 1, got "
+                     f"{args.cpu_devices}")
     if distributed:
         if None in (args.coordinator, args.num_processes, args.process_id):
             parser.error("multi-process mode needs --coordinator, "
                          "--num-processes and --process-id")
-        if args.cpu_devices not in (None, 1):
-            parser.error("one device per process: --cpu-devices must be 1 "
-                         "with --coordinator")
+        if not 0 <= args.process_id < args.num_processes:
+            parser.error(f"--process-id {args.process_id} is not one of "
+                         f"{args.num_processes} processes")
     device = "cpu" if args.cpu_devices else "cuda"
-    if distributed:
-        initialize_distributed(args.coordinator, args.num_processes,
-                               args.process_id, device)
     try:
-        report = run_probe(args.expect, args.timeout, device=device,
-                           cpu_devices=args.cpu_devices or 1,
-                           dev_root=args.dev_root)
+        if distributed:
+            report = run_local_probe(
+                args.coordinator, args.num_processes, args.process_id,
+                expected=args.expect, timeout_s=args.timeout, device=device,
+                cpu_devices=args.cpu_devices or 1, dev_root=args.dev_root)
+        else:
+            report = run_probe(args.expect, args.timeout, device=device,
+                               cpu_devices=args.cpu_devices or 1,
+                               dev_root=args.dev_root)
     except TimeoutError as e:
         print(json.dumps({"ok": False, "error": str(e)}))
         return 2
-    finally:
-        if distributed:
-            shutdown_distributed()
     print(json.dumps(report))
     return 0 if report["ok"] else 1
 

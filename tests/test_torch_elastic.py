@@ -4,12 +4,13 @@
 - The JAX worker stamps the mesh-generation file; the port's FileSignal
   reads it (``tests/test_elastic.py``'s worker case).
 - Elastic parity: the JAX ``ElasticHarness`` rides 4 → 8 → 4 virtual
-  devices; the port drains and restores across gloo worlds of 4 → 8 → 4
-  processes (one per device, the federated harness resuming each world
-  from the previous one's sharded drain), from the same weights
-  (``convert.state_tree_from_jax``) and the JAX harness's tokens. Per-step
-  losses agree within the mesh-step tolerance of
-  ``tests/test_torch_parallel.py`` (rtol 1e-4).
+  devices in one process; the port's pod process rides 4 → 8 → 4 rank
+  processes (``ElasticSupervisor``: each bump drains a world of gloo
+  ranks and spawns the next, which restores resharded), from the same
+  weights (``convert.state_tree_from_jax``) and the JAX harness's tokens.
+  Per-step losses agree within the mesh-step tolerance of
+  ``tests/test_torch_parallel.py`` (rtol 1e-4); every leaf is bitwise
+  across each respawn.
 - In one process the harness's world is a world of one: a reshape there
   is a process-group teardown and re-init, with the state bit-identical.
 - ``train_state_from_jax`` starts the port mid-trajectory, AdamW moments
@@ -17,6 +18,7 @@
 """
 
 import concurrent.futures
+import types
 
 import jax
 import numpy as np
@@ -29,7 +31,6 @@ from gpumounter_tpu.jaxcheck import model as jmodel
 from gpumounter_tpu.jaxcheck import train as jtrain
 from gpumounter_tpu.utils import consts as jconsts
 from gpumounter_tpu_torch.torchcheck import convert
-from gpumounter_tpu_torch.torchcheck import dist as tdist
 from gpumounter_tpu_torch.torchcheck import drain as tdrain
 from gpumounter_tpu_torch.torchcheck import elastic
 from gpumounter_tpu_torch.torchcheck import federation as tfed
@@ -87,12 +88,26 @@ def test_missing_generation_file_is_no_signal(tmp_path):
 # -- elastic parity, 4 -> 8 -> 4 ------------------------------------------------
 
 def _port_ride(root, batches):
-    """The port's ride: gloo worlds of 4, 8, 4, each resuming the last
-    committed generation and draining the next."""
-    return [tdist.run_world(n, torch_worlds.elastic_world,
-                            (root, TINY, batches[12 * i:12 * (i + 1)]),
-                            device="cpu", timeout_s=WORLD_DEADLINE_S)[0]
-            for i, n in enumerate((4, 8, 4))]
+    """The port's ride: one pod process (``ElasticSupervisor``) rides its
+    own chip count, 4 -> 8 -> 4, moved after steps 12 and 24; each bump
+    drains its world of rank processes and spawns the next, which restores
+    the drained generation resharded. Returns the status records."""
+    signal = {"gen": 1, "chips": 4}
+    records = []
+
+    def on_record(record):
+        records.append(record)
+        if record["phase"] == "step" and record["step"] in (12, 24):
+            signal.update(gen=signal["gen"] + 1,
+                          chips=8 if record["step"] == 12 else 4)
+
+    ride = elastic.ElasticSupervisor(
+        CFG, types.SimpleNamespace(generation=lambda: signal["gen"],
+                                   chips=lambda: signal["chips"]),
+        root, device="cpu", batches=torch_worlds.FixedBatches(batches),
+        lr=1e-2, max_steps=36, verify=True, on_record=on_record)
+    assert ride.run() == 0, [r for r in records if r["phase"] == "error"]
+    return records
 
 
 def test_elastic_ride_4_8_4_matches_the_jax_harness(tmp_path):
@@ -118,20 +133,32 @@ def test_elastic_ride_4_8_4_matches_the_jax_harness(tmp_path):
             want += [harness.train_step(b) for b in batches[24:]]
         finally:
             harness.close()
-        rides = port.result(timeout=3 * WORLD_DEADLINE_S)
-    assert [r["mesh"] for r in rides] == [
-        {"data": 1, "seq": n, "model": 1} for n in (4, 8, 4)]
-    got = [loss for r in rides for loss in r["losses"]]
+        records = port.result(timeout=3 * WORLD_DEADLINE_S)
+    by_phase = {}
+    for record in records:
+        by_phase.setdefault(record["phase"], []).append(record)
+    assert [r["world_devices"] for r in by_phase["started"]
+            + by_phase["reshape_done"]] == [4, 8, 4]
+    steps = by_phase["step"]
+    assert [r["step"] for r in steps] == list(range(1, 37))
+    assert [r["world_devices"] for r in steps] == [4] * 12 + [8] * 12 \
+        + [4] * 12
+    got = [r["loss"] for r in steps]
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert np.mean(got[-6:]) < np.mean(got[:6])
-    # no reset at either reshape: the step counter continues and the
-    # restored parameters are the drained ones, bit for bit
-    for before, after, generation in zip(rides, rides[1:], (2, 3)):
-        assert after["start"]["step"] == before["end"]["step"]
-        np.testing.assert_array_equal(after["start"]["embed"],
-                                      before["end"]["embed"])
-        assert after["start"]["restored_generation"] == generation
-    assert [r["end"]["step"] for r in rides] == [12, 24, 36]
+    # no reset at either reshape: the step counter continues and every
+    # restored leaf is the drained one, bit for bit (whole-leaf digests
+    # across worlds of 4 and 8 ranks)
+    assert by_phase["started"][0]["restored_generation"] == 1
+    for begin, done, generation in zip(by_phase["reshape_begin"],
+                                       by_phase["reshape_done"], (2, 3)):
+        assert done["step"] == begin["step"]
+        assert done["digests"] == begin["digests"]
+        assert len(done["digests"]) == len(begin["digests"]) > 10
+        assert done["restored_generation"] == generation
+        assert done["rolled_back"] is False
+    assert [r["step"] for r in by_phase["reshape_begin"]] == [12, 24]
+    assert by_phase["done"][0]["step"] == 36
 
 
 # -- one process: a world of one -------------------------------------------------

@@ -329,16 +329,63 @@ def test_world_agreement_takes_the_minimum():
     assert fed.WorldAgreement().agree(4) == 4      # no world: identity
 
 
-def test_a_member_drives_exactly_one_device():
-    with pytest.raises(ValueError, match="one device"):
-        fed.MemberRunner("http://127.0.0.1:1", "g", "default/p", "/tmp/x",
-                         local_devices=2, device="cpu")
+def _member(local_devices, device="cpu", **kw):
+    return fed.MemberRunner("http://127.0.0.1:1", "g", "default/p",
+                            "/tmp/x", local_devices=local_devices,
+                            device=device, **kw)
+
+
+def _cli(*args):
     with pytest.raises(SystemExit) as info:
         fed.main(["--master", "http://127.0.0.1:1", "--group", "g",
                   "--member", "default/p", "--checkpoint-root", "/tmp/x",
-                  "--local-devices", "2", "--device", "cpu"])
-    assert info.value.code == 2
-    assert fed.configure_cpu_world(1) == torch.device("cpu")
+                  *args])
+    return info.value.code
+
+
+@pytest.mark.parametrize("n", [0, -2])
+def test_a_member_drives_at_least_one_device(n):
+    with pytest.raises(ValueError, match="at least one device"):
+        _member(n)
+    assert _cli("--local-devices", str(n), "--device", "cpu") == 2
+
+
+def test_a_cpu_member_drives_any_number_of_ranks():
+    assert _member(4).local_devices == 4
+    assert fed.configure_cpu_world(4) == torch.device("cpu")
+
+
+@pytest.fixture
+def gpu_nodes(tmp_path):
+    """A pod's /dev and /proc with two GPUs' nodes and driver files."""
+    from gpumounter_tpu_torch.device.fake import fake_uuid
+    dev, proc = tmp_path / "dev", tmp_path / "proc"
+    dev.mkdir()
+    for i in range(2):
+        (dev / f"nvidia{i}").touch()
+        info = proc / "driver" / "nvidia" / "gpus" / f"0000:{i + 16:02x}:00.0"
+        info.mkdir(parents=True)
+        (info / "information").write_text(
+            f"GPU UUID: \t {fake_uuid(i)}\nDevice Minor: \t {i}\n")
+    return str(dev), str(proc), [fake_uuid(i) for i in range(2)]
+
+
+def test_a_member_drives_no_more_gpus_than_its_pod_shows(gpu_nodes):
+    dev, proc, uuids = gpu_nodes
+    # counted from the device nodes: the member touches no CUDA
+    assert _member(2, "cuda", dev_root=dev, proc_root=proc).local_devices \
+        == 2
+    assert not torch.cuda.is_initialized()
+    with pytest.raises(ValueError, match="show 2 GPU"):
+        _member(3, "cuda", dev_root=dev, proc_root=proc)
+    assert _cli("--local-devices", "3", "--dev-root", dev) == 2
+    # a pod that shares its host names its GPUs; they pin its ranks
+    chosen = probe.select_gpus("cuda:1", 1, dev, proc)
+    assert probe.rank_visibility(chosen) == uuids[1]
+    assert probe.rank_visibility(probe.select_gpus("cuda", 2, dev, proc)) \
+        == ",".join(uuids)
+    with pytest.raises(ValueError, match="names 1 of the 2 GPUs"):
+        _member(1, "cuda:2", dev_root=dev, proc_root=proc)
 
 
 def test_member_gives_up_when_the_slice_never_appears(tmp_path):
@@ -352,3 +399,14 @@ def test_member_gives_up_when_the_slice_never_appears(tmp_path):
     assert records[-1]["phase"] == "error"
     assert "never appeared" in records[-1]["message"]
     assert np.isfinite(records[-1]["unix"])
+
+
+def test_a_node_the_driver_does_not_name_is_no_gpu_of_the_pod(gpu_nodes):
+    """Where the driver names the pod's GPUs, a node it does not name
+    (another card's node left in the container) is not counted: the pod's
+    ranks would find no such device."""
+    dev, proc, uuids = gpu_nodes
+    open(f"{dev}/nvidia5", "w").close()
+    assert [d.uuid for d in probe.pod_gpus(dev, proc)] == uuids
+    with pytest.raises(ValueError, match="show 2 GPU"):
+        _member(3, "cuda", dev_root=dev, proc_root=proc)

@@ -1,17 +1,20 @@
 """The port's members ride a live slice resize end to end.
 
 Real member processes (``python -m gpumounter_tpu_torch.torchcheck.
-federation --device cpu``: one process on one CPU device each, gloo
-worlds) against the JAX package's ``MultiNodeStack`` master, as
-``tests/test_federation.py`` runs the JAX members:
+federation --device cpu --local-devices N``: one pod process driving N
+gloo rank processes each) against the JAX package's ``MultiNodeStack``
+master, as ``tests/test_federation.py`` runs the JAX members, at N = 1 and
+at the JAX e2e's N = 2:
 
-- ``/slice/resize`` 2 → 4 → 2 hosts of one device each: worlds of 2, 4, 2
-  members, step counter and loss trajectory intact across both
+- ``/slice/resize`` 2 → 4 → 2 hosts of N devices each: worlds of 2N, 4N,
+  2N devices, step counter and loss trajectory intact across both
   transitions, members resized out exit 0;
 - the coordinator member SIGKILLed mid-resize: the barrier sticks, the
   control plane moves the generation past the dead member, and the
-  survivors re-form a world of 3 under a re-elected coordinator, restoring
-  the last good generation.
+  survivors re-form a world of 3N under a re-elected coordinator,
+  restoring the last good generation;
+- a SIGKILLed rank takes its member down (non-zero exit, every rank of it
+  gone), and a SIGKILLed member takes its ranks with it.
 
 Every wait has its own deadline. This file holds only the e2es, so that a
 run with several workers gives them a worker of their own.
@@ -25,13 +28,21 @@ import sys
 import time
 import urllib.request
 
+import pytest
+
 from gpumounter_tpu.master.admission import BrokerConfig
 from gpumounter_tpu.testing.chaos import (assert_checkpoint_invariants,
                                           assert_slice_invariants)
 from gpumounter_tpu.utils.config import HostPaths
+from gpumounter_tpu_torch.testing.chaos import (
+    assert_checkpoint_invariants as port_checkpoint_invariants)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAIT_S = 120.0
+# devices per member pod: the port's one-device members, and the JAX
+# e2e's two
+LOCAL_DEVICES = (1, 2)
+IDS = ("one_device_members", "two_device_members")
 
 
 def _host(tmp_path, i):
@@ -63,10 +74,10 @@ def _get(url):
         return e.code, json.loads(e.read() or b"{}")
 
 
-def _target(members):
-    """One device per host: a pod's device count is its member count."""
+def _target(members, per_host):
+    """Hosts of ``per_host`` devices each, one member pod per host."""
     return {"pods": [{"namespace": "default", "pod": f"workload-{i}"}
-                     for i in members], "tpusPerHost": 1}
+                     for i in members], "tpusPerHost": per_host}
 
 
 def _stack(tmp_path, hosts, **kw):
@@ -75,14 +86,14 @@ def _stack(tmp_path, hosts, **kw):
                           n_chips=2, **kw)
 
 
-def _spawn_member(base, group, i, tmp_path, *, hold_dir=None,
+def _spawn_member(base, group, i, tmp_path, n, *, hold_dir=None,
                   barrier_timeout=6.0):
     status = str(tmp_path / f"member-{i}.jsonl")
     argv = [sys.executable, "-m", "gpumounter_tpu_torch.torchcheck.federation",
             "--master", base, "--group", group,
             "--member", f"default/workload-{i}",
             "--checkpoint-root", str(tmp_path / "ckpt"),
-            "--local-devices", "1", "--device", "cpu",
+            "--local-devices", str(n), "--device", "cpu",
             "--status-file", status, "--stop-file", str(tmp_path / "stop"),
             "--barrier-timeout", str(barrier_timeout), "--seq-len", "48"]
     if hold_dir is not None:
@@ -133,31 +144,35 @@ def _reap(procs, timeout_s=60.0):
             proc.wait(timeout=10)
 
 
-def test_multiprocess_resize_2_4_2_end_to_end(tmp_path):
+@pytest.mark.parametrize("n", LOCAL_DEVICES, ids=IDS)
+def test_multiprocess_resize_2_4_2_end_to_end(tmp_path, n):
     stack = _stack(tmp_path, hosts=4)
     procs = []
     try:
-        status, body = _post(f"{stack.base}/addtpuslice", _target(range(2)))
+        status, body = _post(f"{stack.base}/addtpuslice",
+                             _target(range(2), n))
         assert status == 200, body
         group = body["group"]
-        p0, s0 = _spawn_member(stack.base, group, 0, tmp_path)
-        p1, s1 = _spawn_member(stack.base, group, 1, tmp_path)
+        p0, s0 = _spawn_member(stack.base, group, 0, tmp_path, n)
+        p1, s1 = _spawn_member(stack.base, group, 1, tmp_path, n)
         procs = [p0, p1]
-        _wait_for(_steps_at(s0, 1, 2, n=3), what="gen-1 steps")
+        _wait_for(_steps_at(s0, 1, 2 * n, n=3), what="gen-1 steps")
         # GROW 2 -> 4: two new member processes join the world
-        status, body = _post(f"{stack.base}/slice/resize", _target(range(4)))
+        status, body = _post(f"{stack.base}/slice/resize",
+                             _target(range(4), n))
         assert status == 200, body
         assert body["generation"] == 2
-        p2, s2 = _spawn_member(stack.base, group, 2, tmp_path)
-        p3, s3 = _spawn_member(stack.base, group, 3, tmp_path)
+        p2, s2 = _spawn_member(stack.base, group, 2, tmp_path, n)
+        p3, s3 = _spawn_member(stack.base, group, 3, tmp_path, n)
         procs += [p2, p3]
-        _wait_for(_steps_at(s0, 2, 4, n=3), what="gen-2 steps")
-        _wait_for(_steps_at(s2, 2, 4, n=1), what="member-2 joined")
+        _wait_for(_steps_at(s0, 2, 4 * n, n=3), what="gen-2 steps")
+        _wait_for(_steps_at(s2, 2, 4 * n, n=1), what="member-2 joined")
         # SHRINK 4 -> 2: members 2 and 3 are refused at the barrier, exit
-        status, body = _post(f"{stack.base}/slice/resize", _target(range(2)))
+        status, body = _post(f"{stack.base}/slice/resize",
+                             _target(range(2), n))
         assert status == 200, body
         assert body["generation"] == 3
-        _wait_for(_steps_at(s0, 3, 2, n=3), what="gen-3 steps")
+        _wait_for(_steps_at(s0, 3, 2 * n, n=3), what="gen-3 steps")
         for proc in (p2, p3):
             assert proc.wait(timeout=WAIT_S) == 0
         assert any(r["phase"] == "resized_out" for r in _records(s2))
@@ -170,7 +185,7 @@ def test_multiprocess_resize_2_4_2_end_to_end(tmp_path):
         steps = [r for r in records if r["phase"] == "step"]
         numbers = [r["step"] for r in steps]
         assert numbers == sorted(set(numbers)), numbers
-        assert {1: 2, 2: 4, 3: 2} == {
+        assert {1: 2 * n, 2: 4 * n, 3: 2 * n} == {
             r["generation"]: r["world_devices"] for r in steps}
         reshapes = [r for r in records if r["phase"] == "reshape_done"]
         assert [r["generation"] for r in reshapes] == [2, 3]
@@ -190,35 +205,46 @@ def test_multiprocess_resize_2_4_2_end_to_end(tmp_path):
                                 [r.sim for r in stack.rigs],
                                 kube=stack.master_kube)
         assert_checkpoint_invariants(str(tmp_path / "ckpt"))
+        port_checkpoint_invariants(str(tmp_path / "ckpt"))
+        # one shard per rank of the world that drained each generation
+        # (members x N), each restored onto a world of another size
+        for generation, ranks in ((2, 2 * n), (3, 4 * n)):
+            manifest = json.loads((tmp_path / "ckpt" / f"gen-{generation}"
+                                   / "manifest.json").read_text())
+            assert manifest["process_count"] == ranks, manifest
+            assert len(manifest["shards"]) == ranks, manifest
     finally:
         _reap(procs, timeout_s=5.0)
         stack.close()
 
 
-def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path):
+@pytest.mark.parametrize("n", LOCAL_DEVICES, ids=IDS)
+def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path, n):
     stack = _stack(tmp_path, hosts=4,
                    broker_config=BrokerConfig(resize_barrier_timeout_s=1.0))
     hold = tmp_path / "hold"
     hold.mkdir()
     procs = []
     try:
-        status, body = _post(f"{stack.base}/addtpuslice", _target(range(2)))
+        status, body = _post(f"{stack.base}/addtpuslice",
+                             _target(range(2), n))
         assert status == 200, body
         group = body["group"]
-        p0, s0 = _spawn_member(stack.base, group, 0, tmp_path,
+        p0, s0 = _spawn_member(stack.base, group, 0, tmp_path, n,
                                hold_dir=hold, barrier_timeout=3.0)
-        p1, s1 = _spawn_member(stack.base, group, 1, tmp_path,
+        p1, s1 = _spawn_member(stack.base, group, 1, tmp_path, n,
                                hold_dir=hold, barrier_timeout=3.0)
         procs = [p0, p1]
         _wait_for(lambda: os.path.exists(
             hold / "default--workload-0.ready-1") and os.path.exists(
             hold / "default--workload-1.ready-1"), what="gen-1 holds")
         (hold / "go-1").touch()
-        _wait_for(_steps_at(s0, 1, 2, n=3), what="gen-1 steps")
+        _wait_for(_steps_at(s0, 1, 2 * n, n=3), what="gen-1 steps")
 
         # GROW 2 -> 4: members drain gen 2, leave the world, and HOLD at
         # the pre-join seam — the deterministic mid-resize window
-        status, body = _post(f"{stack.base}/slice/resize", _target(range(4)))
+        status, body = _post(f"{stack.base}/slice/resize",
+                             _target(range(4), n))
         assert status == 200, body
         assert body["generation"] == 2
         _wait_for(lambda: os.path.exists(
@@ -228,9 +254,9 @@ def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path):
         os.killpg(p0.pid, signal.SIGKILL)
         p0.wait(timeout=10)
         (hold / "go-2").touch()
-        p2, s2 = _spawn_member(stack.base, group, 2, tmp_path,
+        p2, s2 = _spawn_member(stack.base, group, 2, tmp_path, n,
                                barrier_timeout=3.0)
-        p3, s3 = _spawn_member(stack.base, group, 3, tmp_path,
+        p3, s3 = _spawn_member(stack.base, group, 3, tmp_path, n,
                                barrier_timeout=3.0)
         procs += [p2, p3]
 
@@ -247,13 +273,13 @@ def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path):
         # the control plane moves past the dead member: generation 3 for
         # the three live members, coordinator re-elected to member 1
         status, body = _post(f"{stack.base}/slice/resize",
-                             _target([1, 2, 3]))
+                             _target([1, 2, 3], n))
         assert status == 200, body
         assert body["generation"] == 3
         _wait_for(lambda: os.path.exists(
             hold / "default--workload-1.ready-3"), what="gen-3 hold")
         (hold / "go-3").touch()
-        steps = _wait_for(_steps_at(s1, 3, 3, n=3), what="gen-3 steps")
+        steps = _wait_for(_steps_at(s1, 3, 3 * n, n=3), what="gen-3 steps")
         records = _records(s1)
         done = [r for r in records if r["phase"] == "reshape_done"]
         assert done and done[-1]["generation"] == 3
@@ -279,3 +305,83 @@ def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path):
     finally:
         _reap(procs, timeout_s=5.0)
         stack.close()
+
+
+def _rank_pids(parent):
+    """The live rank processes a member spawned (its children running
+    ``multiprocessing``'s spawn entry; not its resource tracker)."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmdline = f.read()
+        except OSError:
+            continue
+        state, ppid = fields[0], int(fields[1])
+        if ppid == parent and state != "Z" and b"spawn_main" in cmdline:
+            pids.append(int(entry))
+    return sorted(pids)
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _two_members_training(tmp_path, stack):
+    """Two members of two CPU devices each, training at generation 1;
+    returns their processes, status files and rank pids."""
+    status, body = _post(f"{stack.base}/addtpuslice", _target(range(2), 2))
+    assert status == 200, body
+    members = [_spawn_member(stack.base, body["group"], i, tmp_path, 2)
+               for i in range(2)]
+    for _, status_path in members:
+        _wait_for(_steps_at(status_path, 1, 4, n=2), what="gen-1 steps")
+    ranks = [_rank_pids(proc.pid) for proc, _ in members]
+    assert [len(r) for r in ranks] == [2, 2], ranks
+    return members, ranks
+
+
+def test_a_killed_rank_takes_its_member_down(tmp_path):
+    stack = _stack(tmp_path, hosts=2)
+    procs = []
+    try:
+        members, ranks = _two_members_training(tmp_path, stack)
+        procs = [proc for proc, _ in members]
+        (p0, s0), victim = members[0], ranks[0][1]
+        os.kill(victim, signal.SIGKILL)
+        # the member stops its other rank and exits non-zero
+        assert p0.wait(timeout=WAIT_S) == 1
+        assert not [pid for pid in ranks[0] if _alive(pid)]
+        error = [r for r in _records(s0) if r["phase"] == "error"][-1]
+        killed = [r for r in error["ranks"].values() if r["pid"] == victim]
+        assert killed and killed[0]["signal"] == "SIGKILL", error
+        assert "was killed by SIGKILL" in error["message"], error
+    finally:
+        _reap(procs, timeout_s=5.0)
+        stack.close()
+    assert not [pid for pids in ranks for pid in pids if _alive(pid)]
+
+
+def test_a_killed_member_takes_its_ranks_with_it(tmp_path):
+    stack = _stack(tmp_path, hosts=2)
+    procs = []
+    try:
+        members, ranks = _two_members_training(tmp_path, stack)
+        procs = [proc for proc, _ in members]
+        p1 = members[1][0]
+        os.kill(p1.pid, signal.SIGKILL)       # the member alone
+        p1.wait(timeout=10)
+        _wait_for(lambda: not [pid for pid in ranks[1] if _alive(pid)],
+                  timeout_s=10.0, what="member 1's ranks gone")
+    finally:
+        _reap(procs, timeout_s=5.0)
+        stack.close()
+    assert not [pid for pids in ranks for pid in pids if _alive(pid)]

@@ -110,8 +110,11 @@ def test_cli_joins_a_world_of_two_processes():
     ["--num-processes", "2"],
     ["--coordinator", "127.0.0.1:1", "--process-id", "0"],
     ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
-     "--process-id", "0", "--cpu-devices", "2"],
-], ids=["count_alone", "count_missing", "two_devices_a_process"])
+     "--process-id", "2", "--cpu-devices", "2"],
+    ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+     "--process-id", "0", "--cpu-devices", "0"],
+], ids=["count_alone", "count_missing", "process_past_the_world",
+        "no_devices_a_process"])
 def test_cli_refuses_an_incomplete_world(args):
     proc = _cli(*args)
     assert proc.returncode == 2 and "error:" in proc.stderr

@@ -10,6 +10,9 @@ as numpy arrays.
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -221,28 +224,15 @@ def restore_state_world(device, root: str, cfg_fields: dict,
             "step": state.step}
 
 
-def elastic_world(device, root: str, cfg_fields: dict,
-                  batches: list) -> dict:
-    """One world of the elastic ride: the federated harness resumes the
-    committed checkpoint over a (1, world, 1) mesh, takes a step per
-    batch, and drains the next generation with the world's barrier."""
-    cfg = tmodel.ModelConfig(**cfg_fields)
-    world = dist.get_world_size()
-    generation = tdrain.latest_generation(root)
-    harness = tfed.FederatedElasticHarness(
-        cfg, lambda: generation, lambda: world,
-        refederator=tfed.Refederator(None, device=device),
-        checkpoint_root=root, lr=1e-2).start(resume=True)
-    start = {"step": harness.state.step,
-             "embed": _np(harness.state.model.embed).copy(),
-             "restored_generation": harness.restored_generation}
-    losses = [harness.train_step(tokens) for tokens in batches]
-    end = {"step": harness.state.step,
-           "embed": _np(harness.state.model.embed).copy()}
-    harness._drain(generation + 1)
-    return {"start": start, "end": end, "losses": losses,
-            "mesh": dict(zip(harness.mesh.mesh_dim_names,
-                             harness.mesh.shape))}
+class FixedBatches:
+    """The token batch of each step from a fixed list (the JAX harness's
+    batches), for a pod process's ranks (picklable)."""
+
+    def __init__(self, batches: list):
+        self.batches = [np.asarray(b) for b in batches]
+
+    def __call__(self, step: int):
+        return self.batches[step]
 
 
 # A state-shaped tree on a 1-D mesh "x" (the JAX drain tests' tree): a
@@ -315,8 +305,57 @@ def stuck_world(device) -> int:
     return int(x.item())
 
 
+def rank_layout(device) -> tuple:
+    """(global rank, local rank, pod process index, world size) as a rank
+    of a ``LocalWorld`` sees them."""
+    local = int(os.environ["LOCAL_RANK"])
+    return (dist.get_rank(), local,
+            dist.get_rank() // int(os.environ["LOCAL_WORLD_SIZE"]),
+            dist.get_world_size())
+
+
+def local_sizes(device) -> list:
+    """The world's check that every pod drives the same N."""
+    return dist_lib.check_local_sizes()
+
+
 def rank_sum(device) -> int:
     """The sum of the ranks over the world."""
     x = torch.tensor([dist.get_rank()])
     dist.all_reduce(x)
     return int(x.item())
+
+
+def _stamp(path: str, generation: int, chips: list) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"generation": generation, "chips": chips}, f)
+    os.replace(tmp, path)
+
+
+def pod_ride(root: str, signal_path: str, chips: list,
+             result_path: str) -> None:
+    """A pod process on the card: one rank rides a bump of its pod's
+    generation file (stamped at generation 1, then 2 after step 2) with
+    the flash step on a small bf16 model; writes its exit code, its
+    status records and whether it ever initialised CUDA."""
+    from functools import partial
+    cfg = tmodel.ModelConfig(vocab=64, d_model=128, n_heads=2, n_layers=1,
+                             d_ff=256, dtype=torch.bfloat16)
+    records = []
+
+    def on_record(record):
+        records.append(record)
+        if record["phase"] == "step" and record["step"] == 2:
+            _stamp(signal_path, 2, chips)
+
+    _stamp(signal_path, 1, chips)
+    ride = telastic.ElasticSupervisor(
+        cfg, telastic.FileSignal(signal_path), os.path.join(root, "ckpt"),
+        device="cuda", batches=telastic.SeededBatches(2, 128, cfg.vocab),
+        step_factory=partial(ttrain.make_train_step, attn_impl="flash"),
+        max_steps=4, verify=True, on_record=on_record)
+    rc = ride.run()
+    with open(result_path, "w") as f:
+        json.dump({"rc": rc, "records": records,
+                   "cuda_initialized": torch.cuda.is_initialized()}, f)
