@@ -48,28 +48,44 @@ Phases, each printing one JSON line on stdout:
      drained host copy), and one step whose loss must be within 1e-3 of
      the reference; the drain and restore split into their parts, bytes,
      GB/s, free disk and peak device memory; then the legacy
-     ``drain_restore_cycle`` on the probe's toy config. (c) on one card, a
-     CUDA-free pod process (``elastic.ElasticSupervisor``) with one local
-     rank process on the card, at the same full width: the worker's
-     mesh-generation file stamped at generation 1 and then 2 (one chip
-     each), the rank draining and exiting on the agreed bump, a fresh rank
-     restoring and continuing; step numbers strictly increase, the
-     fingerprint and every leaf (SHA-256 of each whole leaf) are bitwise
-     across the respawn, the first loss after it is within 1e-3 of the old
-     rank's uninterrupted step, the old rank's pid is gone, the new rank
-     runs on the card's nvidia-smi UUID, and the pod process never
-     initialised CUDA (not among ``nvidia-smi --query-compute-apps``, no
-     ``/dev/nvidia*`` open); the downtime in parts (drain, the old rank's
-     exit, the spawn to the new rank's interpreter and device, the process
-     group, the restore, the first step). (b) with two or more cards,
+     ``drain_restore_cycle`` on the probe's toy config. (c) the Pod's own
+     ride through the port's control plane
+     (``gpumounter_tpu_torch/testing/elastic_attach.py``): the master of
+     phase 12 in front of its worker, whose ``mesh_gen_dir`` is set; a
+     CUDA-free pod process (``elastic.ElasticSupervisor``, its ``dev_root``
+     the fixture container's ``/dev``) started before any attach and
+     waiting for the worker's file; ``GET /addgpu/.../gpu/1`` attaches the
+     card and the worker's own stamp starts a world of one rank at full
+     width (the flash step, b8 x t1024, ~4.84 GB of bf16 parameters and
+     AdamW moments) on the UUID the attach returned; ``POST /removegpu``
+     answers 409 ``GPU_BUSY`` with the rank's pid while it rides; then the
+     bump: on one card the worker's own ``_stamp_mesh_generation`` stamps
+     the same card anew (a respawn at the same width), on two or more a
+     second ``/addgpu`` stamps both cards and the world grows to two ranks
+     on the Megatron split; the rank drains and exits on the agreed bump,
+     the fresh world restores and continues; step numbers strictly
+     increase, the fingerprint and every leaf (SHA-256 of each whole leaf)
+     are bitwise across the respawn, the first loss after it is within
+     1e-3 (1e-2 for the grow) of the old rank's uninterrupted step, the old
+     rank's pid is gone, each new rank holds an attached card's node, the
+     pod process never initialised CUDA (no ``/dev/nvidia*`` open), and
+     after the stop ``/removegpu`` leaves no slave pod and no node; the
+     attach to the first step in parts (``/addgpu``'s return to the stamp
+     seen, the spawn, the interpreter, the device, the process group, the
+     fresh state, the first step), printed on a line of its own, and the
+     respawn's downtime in parts. (b) with two or more cards,
      ``MemberRunner`` pod processes re-federate over NCCL at full width on
      the Megatron split (mesh (1, 1, n)), riding 1 -> 2 -> 1 members
-     against a stand-in for the master's ``/slicez`` and ``/slice/barrier``
-     (``SliceMaster``, served here): members of two cards each (two local
-     rank processes; worlds of 2 -> 4 -> 2 GPUs) on four or more cards, of
-     one card each on two or three; step numbers strictly increase,
-     fingerprints survive each transition, the loss goes down, and the
-     members resized out exit 0. On one card (b) is reported degenerate;
+     against the port's own master (``testing/sim.py``
+     ``MultiNodeStack``: ``/addgpuslice``, ``/slicez``, ``/slice/barrier``
+     and ``POST /slice/resize`` over fixture GKE GPU hosts whose
+     allocatable ``nvidia.com/gpu`` is the cards per member): members of
+     two cards each (two local rank processes; worlds of 2 -> 4 -> 2 GPUs)
+     on four or more cards, of one card each on two or three; the
+     resizes answered with generations 2 and 3, step numbers strictly
+     increase, fingerprints survive each transition, the loss goes down,
+     the members resized out exit 0, and only host 0 keeps its slave pod.
+     On one card (b) is reported degenerate;
   8. selftest — ``gpu_selftest`` in a child process, its nine checks;
   9. device_layer — the enumerators (Python and native) on the real /dev
      and /proc, held against nvidia-smi by UUID;
@@ -264,7 +280,6 @@ from __future__ import annotations
 
 import functools
 import gc
-import http.server
 import json
 import math
 import multiprocessing
@@ -274,7 +289,6 @@ import select
 import shutil
 import subprocess
 import sys
-import threading
 import time
 import traceback
 
@@ -1014,135 +1028,20 @@ def legacy_cycle_toy() -> dict:
             "ok": bool(same and err <= 1e-3)}
 
 
-class SliceMaster:
-    """A stand-in for the two control-plane endpoints a member reads, for
-    one slice group: ``GET /slicez`` (the group's generation and chip
-    count) and ``/slice/barrier`` (POST join, GET status), answering the
-    JSON ``master/slicetxn.py`` answers (``barrier_join``,
-    ``barrier_status``, ``_barrier_payload``) with ``per_member`` devices
-    per member.
-    ``resize`` bumps the generation and arms the barrier for the new
-    membership, as ``POST /slice/resize`` does. Served on localhost."""
-
-    def __init__(self, group: str, members: list[str], per_member: int = 1):
-        self.group = group
-        self.per_member = per_member
-        self.lock = threading.Lock()
-        self.generation = 0
-        self.resize(members)
-        master = self
-
-        class Handler(http.server.BaseHTTPRequestHandler):
-            def log_message(self, *args):
-                pass
-
-            def _send(self, status: int, payload: dict) -> None:
-                body = json.dumps(payload).encode()
-                self.send_response(status)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-
-            def do_GET(self):
-                if self.path.startswith("/slicez"):
-                    self._send(200, master.slicez())
-                elif self.path.startswith("/slice/barrier"):
-                    self._send(*master.status())
-                else:
-                    self._send(404, {"result": "NotFound"})
-
-            def do_POST(self):
-                length = int(self.headers.get("Content-Length") or 0)
-                try:
-                    body = json.loads(self.rfile.read(length) or b"{}")
-                    int(body["generation"])
-                except (ValueError, KeyError, TypeError):
-                    self._send(400, {"result": "BadRequest"})
-                    return
-                self._send(*master.join(body))
-
-        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
-                                                      Handler)
-        self.thread = threading.Thread(target=self.server.serve_forever,
-                                       daemon=True)
-        self.thread.start()
-        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
-
-    def resize(self, members: list[str]) -> int:
-        with self.lock:
-            self.generation += 1
-            self.members = list(members)
-            self.joined: dict[str, str] = {}
-            self.plan: dict | None = None
-            self.armed = time.time()
-            return self.generation
-
-    def slicez(self) -> dict:
-        with self.lock:
-            return {"groups": {self.group: {
-                "generation": self.generation,
-                "chips": len(self.members) * self.per_member}}}
-
-    def _payload(self) -> dict:
-        payload = {"group": self.group, "generation": self.generation,
-                   "expected": len(self.members),
-                   "members": list(self.members),
-                   "joined": sorted(self.joined),
-                   "complete": self.plan is not None,
-                   "age_s": round(time.time() - self.armed, 3)}
-        if self.plan is None:
-            payload["missing"] = [m for m in self.members
-                                  if m not in self.joined]
-            payload["stuck"] = False
-        else:
-            payload["plan"] = dict(self.plan)
-        return payload
-
-    def status(self) -> tuple[int, dict]:
-        with self.lock:
-            return 200, self._payload()
-
-    def join(self, body: dict) -> tuple[int, dict]:
-        generation, member = int(body["generation"]), body.get("member")
-        with self.lock:
-            if body.get("group") != self.group:
-                return 404, {"result": "SliceNotFound",
-                             "group": body.get("group")}
-            if generation != self.generation:
-                stale = generation < self.generation
-                return 409, {"result": "StaleGeneration" if stale
-                             else "UnknownGeneration",
-                             "current": self.generation}
-            if member not in self.members:
-                return 403, {"result": "NotAMember",
-                             "generation": self.generation,
-                             "members": list(self.members)}
-            if self.plan is None:
-                self.joined[member] = body.get("address") or ""
-                if len(self.joined) == len(self.members):
-                    self.plan = {"coordinator": self.joined[self.members[0]],
-                                 "num_processes": len(self.members),
-                                 "members": list(self.members)}
-            return 200, self._payload()
-
-    def close(self) -> None:
-        self.server.shutdown()
-        self.server.server_close()
-
-
 def federation_member(index: int, cards: str, base: str, group: str,
                       root: str, status_path: str, stop_path: str) -> None:
-    """One member pod process of part (b): the flagship config on the
-    Megatron split (the model dim absorbs the world), the flash step, one
-    rank per card of ``cards`` (``cuda:i[,j]``). CUDA-free itself."""
+    """One member pod process of part (b), ``default/workload-<index>``:
+    the flagship config on the Megatron split (the model dim absorbs the
+    world), the flash step, one rank per card of ``cards`` (``cuda:i[,j]``,
+    named explicitly: the slice's hosts are fixture nodes). CUDA-free
+    itself."""
     import faulthandler
     faulthandler.enable()           # a native crash prints its stacks
     sys.path.insert(0, REPO)
     from gpumounter_tpu_torch.torchcheck import federation, perf, train
 
     runner = federation.MemberRunner(
-        base, group, f"default/member-{index}", root,
+        base, group, f"default/workload-{index}", root,
         local_devices=cards.count(",") + 1, device=cards,
         status_path=status_path, stop_path=stop_path,
         barrier_timeout_s=300.0, lr=3e-4, seq_len=1024, batch=8,
@@ -1152,48 +1051,65 @@ def federation_member(index: int, cards: str, base: str, group: str,
     sys.exit(runner.run())
 
 
-def _records(path: str) -> list[dict]:
-    try:
-        with open(path) as f:
-            return [json.loads(line) for line in f if line.strip()]
-    except OSError:
-        return []
-
-
 # How long part (b) waits for each stage of the ride (the members' steps
 # in a generation, a resized-out member's exit).
 RESIZE_WAIT_S = 240.0
 
 
+def _post_json(url: str, obj: dict) -> tuple[int, dict]:
+    from gpumounter_tpu_torch.testing.master_attach import _http
+    return _http("POST", url, json.dumps(obj).encode())
+
+
 def refederate_cards(count: int, card: str) -> dict:
     """Part (b) of the elastic phase: member pod processes ride resizes
-    1 -> 2 -> 1 members at full width over NCCL, against
-    :class:`SliceMaster`: members of two cards each on four or more cards
-    (worlds of 2 -> 4 -> 2 GPUs), of one card each on two or three (1 ->
-    2 -> 1)."""
+    1 -> 2 -> 1 members at full width over NCCL, against the port's own
+    master (``testing/sim.py`` ``MultiNodeStack``: its ``/addgpuslice``,
+    ``/slicez``, ``/slice/barrier`` and ``POST /slice/resize``, over two
+    fixture GKE GPU hosts whose allocatable ``nvidia.com/gpu`` is the cards
+    per member): members of two cards each on four or more cards (worlds
+    of 2 -> 4 -> 2 GPUs), of one card each on two or three (1 -> 2 -> 1)."""
+    from gpumounter_tpu_torch.testing.elastic_attach import read_records
+    from gpumounter_tpu_torch.testing.sim import MultiNodeStack
+    from gpumounter_tpu_torch.utils.config import HostPaths
+
     per = 2 if count >= 4 else 1
     small, large = 1, 2
     root = os.path.join(ELASTIC_DIR, "federation")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     free_before = shutil.disk_usage(root).free
-    names = [f"default/member-{i}" for i in range(large)]
-    master = SliceMaster("txn-chip-smoke", names[:small], per)
+    hosts = []
+    for i in range(large):
+        base = os.path.join(root, "hosts", f"node{i}")
+        for sub in ("dev", "proc", "sys/fs/cgroup"):
+            os.makedirs(os.path.join(base, sub))
+        hosts.append(HostPaths(
+            dev_root=os.path.join(base, "dev"),
+            proc_root=os.path.join(base, "proc"),
+            sys_root=os.path.join(base, "sys"),
+            cgroup_root=os.path.join(base, "sys", "fs", "cgroup")))
+    stack = MultiNodeStack(hosts, n_chips=per)
+
+    def target(n):
+        return {"pods": [{"namespace": "default", "pod": f"workload-{i}"}
+                         for i in range(n)], "gpusPerHost": per}
+
     ctx = multiprocessing.get_context("spawn")
     procs: dict[int, multiprocessing.Process] = {}
     status = {i: os.path.join(root, f"member-{i}.jsonl")
               for i in range(large)}
     stop = os.path.join(root, "stop")
+    answers: list = []
 
     def spawn(i):
         cards = ",".join(str(i * per + j) for j in range(per))
         procs[i] = ctx.Process(target=federation_member, args=(
-            i, f"cuda:{cards}", master.base, master.group, root, status[i],
-            stop))
+            i, f"cuda:{cards}", stack.base, group, root, status[i], stop))
         procs[i].start()
 
     def steps(i, generation):
-        return [r for r in _records(status[i]) if r["phase"] == "step"
+        return [r for r in read_records(status[i]) if r["phase"] == "step"
                 and r["generation"] == generation]
 
     def wait_for(what, predicate):
@@ -1208,16 +1124,28 @@ def refederate_cards(count: int, card: str) -> dict:
                 raise TimeoutError(f"no {what} within {RESIZE_WAIT_S:.0f}s")
             time.sleep(0.5)
 
+    def resize(n):
+        code, body = _post_json(f"{stack.base}/slice/resize", target(n))
+        answers.append({"status": code, "generation": body.get("generation")
+                        if isinstance(body, dict) else None})
+        if code != 200:
+            raise RuntimeError(f"/slice/resize to {n} answered {code}: "
+                               f"{body}")
+
     try:
+        code, body = _post_json(f"{stack.base}/addgpuslice", target(small))
+        if code != 200:
+            raise RuntimeError(f"/addgpuslice answered {code}: {body}")
+        group = body["group"]
         for i in range(small):
             spawn(i)
         wait_for("generation-1 steps", lambda: len(steps(0, 1)) >= 2)
-        master.resize(names)
+        resize(large)
         for i in range(small, large):
             spawn(i)
         wait_for("generation-2 steps", lambda: len(steps(0, 2)) >= 2
                  and len(steps(large - 1, 2)) >= 1)
-        master.resize(names[:small])
+        resize(small)
         wait_for("generation-3 steps", lambda: len(steps(0, 3)) >= 2)
         resized_out = {}
         for i in range(small, large):
@@ -1228,14 +1156,15 @@ def refederate_cards(count: int, card: str) -> dict:
         for i in range(small):
             procs[i].join(timeout=RESIZE_WAIT_S)
         exits = {i: p.exitcode for i, p in procs.items()}
+        slave_pods = [len(rig.sim.slave_pods()) for rig in stack.rigs]
     finally:
         for p in procs.values():
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=30)
-        master.close()
+        stack.close()
 
-    records = _records(status[0])
+    records = read_records(status[0])
     step_rows = [r for r in records if r["phase"] == "step"]
     numbers = [r["step"] for r in step_rows]
     worlds = {r["generation"]: r["world_devices"] for r in step_rows}
@@ -1255,6 +1184,8 @@ def refederate_cards(count: int, card: str) -> dict:
             "member0_timings_s": done.get("timings")})
     losses = [r["loss"] for r in step_rows]
     checks = {
+        "resizes_answered_by_the_ports_master":
+            [a["generation"] for a in answers] == [2, 3],
         "steps_strictly_increase": numbers == sorted(set(numbers))
         and len(numbers) >= 6,
         "worlds": worlds == {1: small * per, 2: large * per,
@@ -1265,188 +1196,52 @@ def refederate_cards(count: int, card: str) -> dict:
         "loss_goes_down": len(losses) >= 4
         and sum(losses[-2:]) < sum(losses[:2]),
         "resized_out_exit_0": all(code == 0 for code in resized_out.values())
-        and all(any(r["phase"] == "resized_out" for r in _records(status[i]))
-                for i in resized_out),
-        "all_exit_0": all(code == 0 for code in exits.values())}
+        and all(any(r["phase"] == "resized_out"
+                    for r in read_records(status[i])) for i in resized_out),
+        "all_exit_0": all(code == 0 for code in exits.values()),
+        "slave_pods_follow_the_slice": slave_pods == [1] + [0] * (large - 1)}
     shutil.rmtree(root, ignore_errors=True)
     return {"nvidia_smi": card, "resizes": [small, large, small],
-            "cards_per_member": per,
+            "cards_per_member": per, "master": "gpumounter_tpu_torch",
+            "resize_answers": answers,
             "free_disk_bytes_before": free_before, "steps": numbers,
             "losses": losses, "worlds": worlds, "transitions": transitions,
-            "exit_codes": exits, "checks": checks,
+            "exit_codes": exits, "slave_pods": slave_pods, "checks": checks,
             "ok": all(checks.values())}
 
 
-def stamp_generation(path: str, generation: int, chips: list[str]) -> None:
-    """Write a pod's mesh-generation file as the worker stamps it on each
-    actuation (``worker/service.py`` ``_stamp_mesh_generation``: the same
-    JSON, fsynced, renamed into place)."""
-    tmp = f"{path}.tmp"
-    with open(tmp, "w") as f:
-        json.dump({"generation": generation, "chips": sorted(chips)}, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
+def ride_attached(card: str, grow: bool) -> dict:
+    """Part (c) of the elastic phase (``testing/elastic_attach.py``): the
+    Pod's CUDA-free pod process waits for its first GPU, the port's master
+    attaches the card (``GET /addgpu``) and the worker's own stamp starts a
+    world of one rank at full width (the flagship state, the flash step);
+    ``/removegpu`` is refused while it rides; then the bump — with
+    ``grow``, a second ``/addgpu`` (a world of two ranks on both attached
+    cards), else the worker's own ``_stamp_mesh_generation`` of the same
+    card; the respawned world restores every leaf bitwise; the detach after
+    the stop. Every attached UUID must be one nvidia-smi names."""
+    from gpumounter_tpu_torch.device.enumerator import PyEnumerator
+    from gpumounter_tpu_torch.testing.elastic_attach import (
+        Ride, run_elastic_attach)
+    from gpumounter_tpu_torch.torchcheck import perf
+    from gpumounter_tpu_torch.utils.config import HostPaths
 
-
-def ride_supervisor(root: str, signal_path: str, status_path: str,
-                    stop_path: str, result_path: str) -> None:
-    """The pod process of part (c): ``ElasticSupervisor`` riding the
-    generation file with one local rank on the card at full width (the
-    flagship state, the flash step), every leaf digested across the
-    respawn. Writes its exit code and whether it ever initialised CUDA."""
-    import faulthandler
-    faulthandler.enable()
-    sys.path.insert(0, REPO)
-    from gpumounter_tpu_torch.torchcheck import elastic, perf, train
-
-    cfg = perf.mxu_config()
-    ride = elastic.ElasticSupervisor(
-        cfg, elastic.FileSignal(signal_path), os.path.join(root, "ckpt"),
-        device="cuda", batches=elastic.SeededBatches(8, 1024, cfg.vocab),
-        lr=3e-4, step_factory=functools.partial(train.make_train_step,
-                                                attn_impl="flash"),
-        status_path=status_path, stop_path=stop_path, verify=True)
-    rc = ride.run()
-    with open(result_path, "w") as f:
-        json.dump({"rc": rc, "pid": os.getpid(),
-                   "cuda_initialized": torch.cuda.is_initialized()}, f)
-    sys.exit(rc)
-
-
-def compute_app_pids() -> list[int]:
-    """The pids ``nvidia-smi`` lists as holding a compute context."""
-    proc = subprocess.run(
-        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return [int(x) for x in proc.stdout.split() if x.strip().isdigit()]
-
-
-def gpu_fds(pid: int) -> list[str]:
-    """The ``/dev/nvidia*`` files process ``pid`` holds open."""
-    out = []
-    try:
-        for fd in os.listdir(f"/proc/{pid}/fd"):
-            try:
-                target = os.readlink(f"/proc/{pid}/fd/{fd}")
-            except OSError:
-                continue
-            if target.startswith("/dev/nvidia"):
-                out.append(target)
-    except OSError:
-        pass
-    return sorted(set(out))
-
-
-def alive(pid: int) -> bool:
-    try:
-        with open(f"/proc/{pid}/stat") as f:
-            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
-    except OSError:
-        return False
-
-
-def _uuid(text: str) -> str:
-    return text.strip().lower().removeprefix("gpu-")
-
-
-# How long part (c) waits for each stage of the ride.
-RESPAWN_WAIT_S = 300.0
-
-
-def respawn_one_card(card: str) -> dict:
-    """Part (c) of the elastic phase: a CUDA-free pod process
-    (``elastic.ElasticSupervisor``) with one local rank on the card rides
-    a generation bump of the worker's file (1 -> 2, one chip -> one chip)
-    at full width: its rank drains and exits, a fresh rank restores and
-    continues. Checked: steps continue, every leaf bitwise across the
-    respawn, the first loss after it within 1e-3 of the old rank's
-    uninterrupted step, the old rank gone, the new one on the card's
-    UUID, the pod process without a CUDA context; the downtime in parts."""
-    root = os.path.join(ELASTIC_DIR, "respawn")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    uuid = nvidia_smi("uuid").splitlines()[0].strip()
-    paths = {name: os.path.join(root, name) for name in (
-        "signal.json", "status.jsonl", "stop", "result.json")}
-    stamp_generation(paths["signal.json"], 1, [uuid])
-    ctx = multiprocessing.get_context("spawn")
-    sup = ctx.Process(target=ride_supervisor, args=(
-        root, paths["signal.json"], paths["status.jsonl"], paths["stop"],
-        paths["result.json"]))
-
-    def records(phase=None):
-        return [r for r in _records(paths["status.jsonl"])
-                if phase is None or r["phase"] == phase]
-
-    def steps(generation):
-        return [r for r in records("step") if r["generation"] == generation]
-
-    def wait_for(what, predicate):
-        deadline = time.monotonic() + RESPAWN_WAIT_S
-        while not predicate():
-            if sup.exitcode is not None:
-                raise RuntimeError(f"the pod process exited with "
-                                   f"{sup.exitcode} while waiting for "
-                                   f"{what}: {records('error')}")
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"no {what} within {RESPAWN_WAIT_S:.0f}s")
-            time.sleep(0.2)
-
-    sup.start()
-    try:
-        wait_for("generation-1 steps", lambda: len(steps(1)) >= 2)
-        apps_before = compute_app_pids()
-        fds_before = gpu_fds(sup.pid)
-        stamp_generation(paths["signal.json"], 2, [uuid])
-        wait_for("generation-2 steps", lambda: len(steps(2)) >= 2)
-        apps_after = compute_app_pids()
-        fds_after = gpu_fds(sup.pid)
-        with open(paths["stop"], "w") as f:
-            f.write("1")
-        sup.join(timeout=RESPAWN_WAIT_S)
-    finally:
-        if sup.is_alive():
-            sup.terminate()
-            sup.join(timeout=30)
-    with open(paths["result.json"]) as f:
-        result = json.load(f)
-    started, begin = records("started")[0], records("reshape_begin")[0]
-    done = records("reshape_done")[0]
-    numbers = [r["step"] for r in records("step")]
-    losses = [r["loss"] for r in records("step")]
-    after = steps(2)[0]
-    parts = dict(done["downtime_s"], first_step=after["unix"] - done["unix"])
-    err = abs(after["loss"] - done["reference_loss"])
-    checks = {
-        "supervisor_exit_0": result["rc"] == 0 and sup.exitcode == 0,
-        "steps_strictly_increase": numbers == sorted(set(numbers))
-        and len(numbers) >= 4 and done["step"] == begin["step"],
-        "fingerprint_bitwise": done["fingerprint"] == begin["fingerprint"],
-        "leaves_bitwise": bool(begin["digests"])
-        and done["digests"] == begin["digests"],
-        "loss_within_1e-3": err <= 1e-3,
-        "old_rank_gone": started["pid"] != done["pid"]
-        and not alive(started["pid"]),
-        "new_rank_on_the_card": _uuid(done.get("uuid", "")) == _uuid(uuid),
-        "supervisor_without_cuda": not result["cuda_initialized"]
-        and sup.pid not in apps_before + apps_after
-        and not fds_before + fds_after,
-        "old_rank_exited_before_the_spawn":
-            done["downtime_s"]["old_rank_exit"] >= 0}
-    shutil.rmtree(root, ignore_errors=True)
-    return {"nvidia_smi": card, "uuid": uuid, "steps": numbers,
-            "losses": losses, "reference_loss": done["reference_loss"],
-            "resumed_loss": after["loss"], "abs_err": err, "tol": 1e-3,
-            "leaves": len(begin["digests"]),
-            "pids": {"supervisor": sup.pid, "old_rank": started["pid"],
-                     "new_rank": done["pid"]},
-            "compute_apps": {"before": apps_before, "after": apps_after},
-            "supervisor_gpu_fds": fds_before + fds_after,
-            "downtime_parts_s": parts,
-            "downtime_s": sum(parts.values()),
-            "reshape_begin_to_first_step_s": after["unix"] - begin["unix"],
-            "timings": done["timings"], "checks": checks,
+    smi_uuids = [u.strip() for u in nvidia_smi("uuid").splitlines()]
+    # a world of two on the Megatron split against the one rank's
+    # uninterrupted step: bf16 partial sums in another order
+    ride = Ride("cuda", perf.mxu_config(), batch=8, seq_len=1024,
+                attn_impl="flash", tol=1e-2 if grow else 1e-3)
+    report = run_elastic_attach(
+        os.path.join(ELASTIC_DIR, "grow" if grow else "respawn"),
+        PyEnumerator(HostPaths()), ride, grow=grow)
+    checks = report["checks"]
+    checks["cards_are_nvidia_smi_uuids"] = bool(report.get("uuids")) and all(
+        u in smi_uuids for u in report["uuids"])
+    emit("attach_to_first_step", nvidia_smi=card, grow=grow,
+         parts_s=report.get("attach_to_first_step_s"),
+         total_s=report.get("attach_to_first_step_total_s"),
+         respawn_parts_s=report.get("downtime_parts_s"))
+    return {"nvidia_smi": card, **report, "checks": checks,
             "ok": all(checks.values())}
 
 
@@ -2182,8 +1977,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         legacy = part(legacy_cycle_toy)
         torch.cuda.empty_cache()
-        respawn = part(respawn_one_card, card)
         count = torch.cuda.device_count()
+        # one card: the respawn at the same width; two or more: the pod's
+        # device set grows by a second attach
+        respawn = part(ride_attached, card, count > 1)
         if count > 1:
             cards = part(refederate_cards, count, card)
         else:

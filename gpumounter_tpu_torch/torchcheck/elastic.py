@@ -579,6 +579,13 @@ def ride_rank(device: torch.device, control: RankControl,
                "device": str(device)}
     if device.type == "cuda":
         started["uuid"] = str(torch.cuda.get_device_properties(device).uuid)
+        # every rank's GPU, by global rank: a rank's open device nodes do
+        # not say which GPU it computes on (CUDA opens every node it can)
+        uuids = [started["uuid"]]
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            uuids = [None] * dist.get_world_size()
+            dist.all_gather_object(uuids, started["uuid"])
+        started["uuids"] = uuids
     if spec.verify and harness.restored_generation is not None:
         started["digests"] = leaf_digests(harness.state, spec.cfg,
                                           harness.mesh)
@@ -647,8 +654,10 @@ class RankSupervisor:
     NCCL on the GPUs the pod's device nodes show now, or gloo ranks on
     the CPU), answers their reports with one read of the signal and the
     stop file, and writes the status file (JSONL, one object per event:
-    ``started``, ``step``, ``reshape_begin``, ``reshape_done``,
-    ``stopped``, ``done``, ``error``; ``on_record`` sees each too).
+    ``waiting`` (for the signal to appear), ``signal`` (the generation
+    first seen), ``started`` (with the time its world was spawned),
+    ``step``, ``reshape_begin``, ``reshape_done``, ``stopped``, ``done``,
+    ``error``; ``on_record`` sees each too).
 
     ``device``: ``cpu``, ``cuda`` (the first GPUs the pod's nodes show)
     or ``cuda:i[,j...]`` (named by their place among them). A rank that
@@ -688,6 +697,7 @@ class RankSupervisor:
         self.on_record = on_record
         self.generation = None
         self._drained: dict | None = None    # the last world's drain
+        self._spawned: float | None = None   # when the world was spawned
 
     def _log(self, phase: str, **fields) -> None:
         record = {"member": self.name, "phase": phase,
@@ -724,7 +734,8 @@ class RankSupervisor:
         if phase == "started":
             if self._drained is None:
                 self._log("started", resumed=bool(
-                    record["restored_generation"] is not None), **record)
+                    record["restored_generation"] is not None),
+                    spawned=self._spawned, **record)
             else:
                 old, restore = self._drained, record.pop("restore")
                 self._log("reshape_done", **record,
@@ -754,7 +765,7 @@ class RankSupervisor:
         old, up = self._drained, started["startup"]
         return {"drain": old["drained"] - old["drain_began"],
                 "old_rank_exit": old["exited"] - old["exiting"],
-                "spawn_to_interpreter": up["main"] - old["spawned"],
+                "spawn_to_interpreter": up["main"] - self._spawned,
                 "interpreter_to_device": up["device"] - up["main"],
                 "init_process_group": up["joined"] - up["device"],
                 "restore": up["built"] - up["joined"]}
@@ -780,8 +791,7 @@ class RankSupervisor:
         self.generation = spec.generation
         try:
             with world:
-                if self._drained is not None:
-                    self._drained["spawned"] = world.spawned
+                self._spawned = world.spawned
                 try:
                     outcome = supervise(world, control, self._answer)[0]
                 except (RuntimeError, TimeoutError) as e:
@@ -816,11 +826,13 @@ class ElasticSupervisor(RankSupervisor):
     def run(self) -> int:
         """Returns the process exit code: 0 once stopped or done, 1 when
         a world failed, 2 when the signal never appeared."""
+        self._log("waiting")
         generation = self._wait_for_generation(self.SIGNAL_WAIT_S)
         if generation is None:
             self._log("error", message="the generation signal never "
                                        "appeared")
             return 2
+        self._log("signal", generation=generation)
         while True:
             latest = drain_lib.latest_generation(self.checkpoint_root)
             chips = int(self.signal.chips())

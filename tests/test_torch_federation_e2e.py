@@ -2,9 +2,12 @@
 
 Real member processes (``python -m gpumounter_tpu_torch.torchcheck.
 federation --device cpu --local-devices N``: one pod process driving N
-gloo rank processes each) against the JAX package's ``MultiNodeStack``
-master, as ``tests/test_federation.py`` runs the JAX members, at N = 1 and
-at the JAX e2e's N = 2:
+gloo rank processes each) against a ``MultiNodeStack`` master, as
+``tests/test_federation.py`` runs the JAX members, at N = 1 and at the
+JAX e2e's N = 2. The cases here run against the JAX package's stack;
+``tests/test_torch_federation_port_e2e.py`` runs the two rides below
+(:func:`ride_resize_2_4_2`, :func:`ride_sigkill_mid_resize`) against the
+port's own stack, whose hosts hold N GPUs each:
 
 - ``/slice/resize`` 2 → 4 → 2 hosts of N devices each: worlds of 2N, 4N,
   2N devices, step counter and loss trajectory intact across both
@@ -30,12 +33,11 @@ import urllib.request
 
 import pytest
 
-from gpumounter_tpu.master.admission import BrokerConfig
-from gpumounter_tpu.testing.chaos import (assert_checkpoint_invariants,
-                                          assert_slice_invariants)
-from gpumounter_tpu.utils.config import HostPaths
+from gpumounter_tpu.testing.chaos import assert_checkpoint_invariants
 from gpumounter_tpu_torch.testing.chaos import (
     assert_checkpoint_invariants as port_checkpoint_invariants)
+
+from torch_control_plane import JAX
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAIT_S = 120.0
@@ -43,17 +45,6 @@ WAIT_S = 120.0
 # e2e's two
 LOCAL_DEVICES = (1, 2)
 IDS = ("one_device_members", "two_device_members")
-
-
-def _host(tmp_path, i):
-    base = tmp_path / f"node{i}"
-    for sub in ("dev", "proc", "sys/fs/cgroup"):
-        (base / sub).mkdir(parents=True)
-    return HostPaths(dev_root=str(base / "dev"),
-                     proc_root=str(base / "proc"),
-                     sys_root=str(base / "sys"),
-                     cgroup_root=str(base / "sys" / "fs" / "cgroup"),
-                     kubelet_socket=str(base / "pr" / "kubelet.sock"))
 
 
 def _post(url, obj):
@@ -74,16 +65,31 @@ def _get(url):
         return e.code, json.loads(e.read() or b"{}")
 
 
-def _target(members, per_host):
+def _target(members, per_host, pkg=JAX):
     """Hosts of ``per_host`` devices each, one member pod per host."""
     return {"pods": [{"namespace": "default", "pod": f"workload-{i}"}
-                     for i in members], "tpusPerHost": per_host}
+                     for i in members], f"{pkg.dev}sPerHost": per_host}
 
 
-def _stack(tmp_path, hosts, **kw):
-    from gpumounter_tpu.testing.sim import MultiNodeStack
-    return MultiNodeStack([_host(tmp_path, i) for i in range(hosts)],
-                          n_chips=2, **kw)
+def _stack(tmp_path, hosts, pkg=JAX, n_chips=2, **kw):
+    """``pkg``'s ``MultiNodeStack`` of ``hosts`` hosts of ``n_chips``
+    devices each."""
+    return pkg.mod("testing.sim").MultiNodeStack(
+        [pkg.host(tmp_path / f"node{i}") for i in range(hosts)],
+        n_chips=n_chips, **kw)
+
+
+def _add_slice(pkg, stack, members, per_host):
+    status, body = _post(f"{stack.base}/add{pkg.dev}slice",
+                         _target(members, per_host, pkg))
+    assert status == 200, body
+    return body["group"]
+
+
+def _slice_invariants(pkg, stack):
+    pkg.mod("testing.chaos").assert_slice_invariants(
+        stack.gateway.broker, [r.sim for r in stack.rigs],
+        kube=stack.master_kube)
 
 
 def _spawn_member(base, group, i, tmp_path, n, *, hold_dir=None,
@@ -144,22 +150,20 @@ def _reap(procs, timeout_s=60.0):
             proc.wait(timeout=10)
 
 
-@pytest.mark.parametrize("n", LOCAL_DEVICES, ids=IDS)
-def test_multiprocess_resize_2_4_2_end_to_end(tmp_path, n):
-    stack = _stack(tmp_path, hosts=4)
+def ride_resize_2_4_2(tmp_path, n, pkg=JAX, n_chips=2):
+    """Members of ``n`` devices ride 2 -> 4 -> 2 hosts against ``pkg``'s
+    stack of hosts of ``n_chips`` devices."""
+    stack = _stack(tmp_path, 4, pkg, n_chips)
     procs = []
     try:
-        status, body = _post(f"{stack.base}/addtpuslice",
-                             _target(range(2), n))
-        assert status == 200, body
-        group = body["group"]
+        group = _add_slice(pkg, stack, range(2), n)
         p0, s0 = _spawn_member(stack.base, group, 0, tmp_path, n)
         p1, s1 = _spawn_member(stack.base, group, 1, tmp_path, n)
         procs = [p0, p1]
         _wait_for(_steps_at(s0, 1, 2 * n, n=3), what="gen-1 steps")
         # GROW 2 -> 4: two new member processes join the world
         status, body = _post(f"{stack.base}/slice/resize",
-                             _target(range(4), n))
+                             _target(range(4), n, pkg))
         assert status == 200, body
         assert body["generation"] == 2
         p2, s2 = _spawn_member(stack.base, group, 2, tmp_path, n)
@@ -169,7 +173,7 @@ def test_multiprocess_resize_2_4_2_end_to_end(tmp_path, n):
         _wait_for(_steps_at(s2, 2, 4 * n, n=1), what="member-2 joined")
         # SHRINK 4 -> 2: members 2 and 3 are refused at the barrier, exit
         status, body = _post(f"{stack.base}/slice/resize",
-                             _target(range(2), n))
+                             _target(range(2), n, pkg))
         assert status == 200, body
         assert body["generation"] == 3
         _wait_for(_steps_at(s0, 3, 2 * n, n=3), what="gen-3 steps")
@@ -201,9 +205,7 @@ def test_multiprocess_resize_2_4_2_end_to_end(tmp_path, n):
         losses = [r["loss"] for r in steps]
         assert len(losses) >= 9
         assert (sum(losses[-3:]) / 3) < (sum(losses[:3]) / 3), losses
-        assert_slice_invariants(stack.gateway.broker,
-                                [r.sim for r in stack.rigs],
-                                kube=stack.master_kube)
+        _slice_invariants(pkg, stack)
         assert_checkpoint_invariants(str(tmp_path / "ckpt"))
         port_checkpoint_invariants(str(tmp_path / "ckpt"))
         # one shard per rank of the world that drained each generation
@@ -219,17 +221,21 @@ def test_multiprocess_resize_2_4_2_end_to_end(tmp_path, n):
 
 
 @pytest.mark.parametrize("n", LOCAL_DEVICES, ids=IDS)
-def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path, n):
-    stack = _stack(tmp_path, hosts=4,
-                   broker_config=BrokerConfig(resize_barrier_timeout_s=1.0))
+def test_multiprocess_resize_2_4_2_end_to_end(tmp_path, n):
+    ride_resize_2_4_2(tmp_path, n)
+
+
+def ride_sigkill_mid_resize(tmp_path, n, pkg=JAX, n_chips=2):
+    """The coordinator of members of ``n`` devices SIGKILLed mid-resize,
+    against ``pkg``'s stack of hosts of ``n_chips`` devices."""
+    config = pkg.mod("master.admission").BrokerConfig(
+        resize_barrier_timeout_s=1.0)
+    stack = _stack(tmp_path, 4, pkg, n_chips, broker_config=config)
     hold = tmp_path / "hold"
     hold.mkdir()
     procs = []
     try:
-        status, body = _post(f"{stack.base}/addtpuslice",
-                             _target(range(2), n))
-        assert status == 200, body
-        group = body["group"]
+        group = _add_slice(pkg, stack, range(2), n)
         p0, s0 = _spawn_member(stack.base, group, 0, tmp_path, n,
                                hold_dir=hold, barrier_timeout=3.0)
         p1, s1 = _spawn_member(stack.base, group, 1, tmp_path, n,
@@ -244,7 +250,7 @@ def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path, n):
         # GROW 2 -> 4: members drain gen 2, leave the world, and HOLD at
         # the pre-join seam — the deterministic mid-resize window
         status, body = _post(f"{stack.base}/slice/resize",
-                             _target(range(4), n))
+                             _target(range(4), n, pkg))
         assert status == 200, body
         assert body["generation"] == 2
         _wait_for(lambda: os.path.exists(
@@ -273,7 +279,7 @@ def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path, n):
         # the control plane moves past the dead member: generation 3 for
         # the three live members, coordinator re-elected to member 1
         status, body = _post(f"{stack.base}/slice/resize",
-                             _target([1, 2, 3], n))
+                             _target([1, 2, 3], n, pkg))
         assert status == 200, body
         assert body["generation"] == 3
         _wait_for(lambda: os.path.exists(
@@ -298,13 +304,17 @@ def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path, n):
         _reap([p1, p2, p3])
         assert p1.returncode == 0
         assert p2.returncode == 0 and p3.returncode == 0
-        assert_slice_invariants(stack.gateway.broker,
-                                [r.sim for r in stack.rigs],
-                                kube=stack.master_kube)
+        _slice_invariants(pkg, stack)
         assert_checkpoint_invariants(str(tmp_path / "ckpt"))
+        port_checkpoint_invariants(str(tmp_path / "ckpt"))
     finally:
         _reap(procs, timeout_s=5.0)
         stack.close()
+
+
+@pytest.mark.parametrize("n", LOCAL_DEVICES, ids=IDS)
+def test_member_sigkill_mid_resize_rolls_back_and_reforms(tmp_path, n):
+    ride_sigkill_mid_resize(tmp_path, n)
 
 
 def _rank_pids(parent):
@@ -338,9 +348,8 @@ def _alive(pid):
 def _two_members_training(tmp_path, stack):
     """Two members of two CPU devices each, training at generation 1;
     returns their processes, status files and rank pids."""
-    status, body = _post(f"{stack.base}/addtpuslice", _target(range(2), 2))
-    assert status == 200, body
-    members = [_spawn_member(stack.base, body["group"], i, tmp_path, 2)
+    group = _add_slice(JAX, stack, range(2), 2)
+    members = [_spawn_member(stack.base, group, i, tmp_path, 2)
                for i in range(2)]
     for _, status_path in members:
         _wait_for(_steps_at(status_path, 1, 4, n=2), what="gen-1 steps")
@@ -350,7 +359,7 @@ def _two_members_training(tmp_path, stack):
 
 
 def test_a_killed_rank_takes_its_member_down(tmp_path):
-    stack = _stack(tmp_path, hosts=2)
+    stack = _stack(tmp_path, 2)
     procs = []
     try:
         members, ranks = _two_members_training(tmp_path, stack)
@@ -371,7 +380,7 @@ def test_a_killed_rank_takes_its_member_down(tmp_path):
 
 
 def test_a_killed_member_takes_its_ranks_with_it(tmp_path):
-    stack = _stack(tmp_path, hosts=2)
+    stack = _stack(tmp_path, 2)
     procs = []
     try:
         members, ranks = _two_members_training(tmp_path, stack)

@@ -392,10 +392,11 @@ def test_training_loop_survives_member_host_death_via_repair(tmp_path):
     1 dies, self-healing re-forms the group onto the spare on host 2
     under the SAME group lease with one generation bump, and the world
     re-forms with the spare's member: step counter and loss trajectory
-    continue from the drained state. A port member is one process on one
-    device (ROADMAP Queue 3 item 11), so host 1's member is killed once
-    the survivors have left their world for the new generation (at the
-    pre-join hold) — a peer killed inside a collective would fail it."""
+    continue from the drained state. Each member here is a pod process
+    with one gloo rank process (``--local-devices 1``, the hosts' one
+    device), and host 1's member is killed once the survivors have left
+    their world for the new generation (at the pre-join hold) — a peer
+    killed inside a collective would fail it."""
     from gpumounter_tpu_torch.testing.chaos import (
         assert_node_death_invariants, assert_slice_invariants)
     stack = _stack(TORCH, tmp_path, 3, n_chips=1)
