@@ -353,15 +353,20 @@ def _die_with_parent(parent_pid: int) -> None:
 
 def _world_main(local: int, n_local: int, offset: int, world: int,
                 rendezvous: str, backend: str, visible: str | None,
-                timeout_s: float | None, parent_pid: int, shared,
-                inbox, results) -> None:
+                timeout_s: float | None, deadline: float | None,
+                parent_pid: int, shared, inbox, results) -> None:
     """One rank process of a :class:`LocalWorld`: global rank ``offset +
-    local`` of ``world``, on ``cuda:<local>`` (NCCL) or the CPU (gloo)."""
+    local`` of ``world``, on ``cuda:<local>`` (NCCL) or the CPU (gloo).
+    ``deadline`` is the world's end as a unix time (None: no end)."""
     STARTUP["main"] = time.time()
     _die_with_parent(parent_pid)
-    if timeout_s is not None:
+    if deadline is not None:
+        # timed from the world's deadline, not from this start: a rank
+        # whose interpreter took long to load torch still dumps before
+        # its parent stops it
         faulthandler.dump_traceback_later(
-            max(timeout_s - STACK_DUMP_LEAD_S, 1.0), exit=False)
+            max(deadline - time.time() - STACK_DUMP_LEAD_S, 1.0),
+            exit=False)
     rank = offset + local
     try:
         # before the first CUDA call, in this process only: the
@@ -507,11 +512,17 @@ class LocalWorld:
             init = "file://" + os.path.join(self._store_dir, "store")
         else:
             init = f"tcp://{self.rendezvous}"
+        # the deadline is set before the spawn, and the ranks get it as a
+        # unix time (another process's monotonic clock means nothing)
+        deadline = None
+        if self.timeout_s is not None:
+            deadline = time.time() + self.timeout_s
+            self._deadline = time.monotonic() + self.timeout_s
         self.procs = [ctx.Process(target=_world_main, args=(
             r, self.n_local, self.rank_offset, self.world_size, init,
-            self.backend, self.visible, self.timeout_s, os.getpid(),
-            self.shared, self._inbox, self._results), daemon=True)
-            for r in range(self.n_local)]
+            self.backend, self.visible, self.timeout_s, deadline,
+            os.getpid(), self.shared, self._inbox, self._results),
+            daemon=True) for r in range(self.n_local)]
         self.spawned = time.time()
         for p in self.procs:
             p.start()
@@ -522,8 +533,6 @@ class LocalWorld:
         # each child in turn.
         for _ in self.procs:
             self._inbox.put((self.target, self.args))
-        if self.timeout_s is not None:
-            self._deadline = time.monotonic() + self.timeout_s
         return self
 
     def _ended(self) -> bool:

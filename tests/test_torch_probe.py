@@ -221,3 +221,25 @@ def test_a_stuck_rank_dumps_its_stack_before_the_deadline(capfd):
     assert time.monotonic() - t0 < 60
     err = capfd.readouterr().err
     assert "Timeout (0:00:0" in err and "in stuck_world" in err, err[-3000:]
+
+
+def test_a_rank_that_starts_late_still_dumps_before_the_deadline(capfd):
+    """The stack dump is timed from the world's deadline, not from the
+    rank's start: ranks held until 5 s before the deadline (as a slow
+    torch import under load holds them) still print every thread's stack
+    before the parent stops them. Timed from their own start, the dump
+    would come 3 s after the deadline."""
+    import time
+
+    import torch_worlds
+    from gpumounter_tpu_torch.torchcheck import dist as dist_lib
+    timeout_s = dist_lib.STACK_DUMP_LEAD_S + 8
+    late = torch_worlds.LateStart(time.time() + timeout_s - 5)
+    with dist_lib.LocalWorld(2, torch_worlds.late_stuck_world,
+                             device="cpu", shared=late,
+                             timeout_s=timeout_s) as world:
+        with pytest.raises(TimeoutError, match=r"ranks \[0, 1\]"):
+            world.wait()
+    err = capfd.readouterr().err
+    assert "in stuck_world" in err and "in late_stuck_world" in err, \
+        err[-3000:]

@@ -305,6 +305,33 @@ def stuck_world(device) -> int:
     return int(x.item())
 
 
+def _start_at(unix_time: float) -> float:
+    """Sleep until ``unix_time`` and return it. Unpickled in a spawned
+    rank before its ``_world_main`` runs, this holds the rank's start as a
+    slow interpreter or torch import would."""
+    import time
+    time.sleep(max(0.0, unix_time - time.time()))
+    return unix_time
+
+
+class LateStart:
+    """A ``shared`` argument of ``LocalWorld`` whose unpickling in each
+    rank lasts until ``unix_time``: the rank starts then, whenever the
+    world's deadline is."""
+
+    def __init__(self, unix_time: float):
+        self.unix_time = unix_time
+
+    def __reduce__(self):
+        return _start_at, (self.unix_time,)
+
+
+def late_stuck_world(device, started_at: float) -> int:
+    """:func:`stuck_world` in a world whose ranks started late
+    (``LateStart``)."""
+    return stuck_world(device)
+
+
 def rank_layout(device) -> tuple:
     """(global rank, local rank, pod process index, world size) as a rank
     of a ``LocalWorld`` sees them."""
