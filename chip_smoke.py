@@ -265,7 +265,25 @@ Phases, each printing one JSON line on stdout:
      through the master over mTLS beside 20 through a master over
      plaintext (host-clock medians, min, max, gateway and worker spans);
      fallbacks 0, the phase under 60 s;
- 20. the kernels line (each entry names the device function and the line
+ 20. control_plane_bench — the port's bench (``gpumounter_tpu_torch/bench.py``,
+     ``run_control_plane``) at trimmed sizes on fixture GPUs (the card is
+     not needed; phase 8 already ran the selftest child its ``main``
+     reads): overhead 50 cycles, the events, usage, topology and parking
+     A/Bs 30 each, the entire 8-GPU mount 10, e2e at a 1.0 s scheduler
+     delay 5, the warm pool 3 with the apiserver round trips counted,
+     contention 1 cycle, multimaster on a 2.5 s window, sustained 550
+     clients (e2e 20 and pool 10 took the phase to 104 s on the H100
+     machine; each of their cycles waits the 1.0 s delay), in its own
+     interpreter, so that the process-wide registry it reads holds its
+     own attaches only. Its checks are the ``measure_*`` functions' own
+     (a failed one raises), a pool hit on every cycle, no LIST on the
+     warm path, every latency finite, and the phase under 90 s; the bars
+     of the bench's ``main`` (the A/Bs within noise, the absolute 10 ms
+     overhead bar) are reported beside them, not held here. It also
+     reports the threads the earlier phases left in this process and
+     this process's CPU share while it waits (each phase's line carries
+     the threads it left, ``threads_left``);
+ 21. the kernels line (each entry names the device function and the line
      of its definition), the card line, and the device line.
 
 Tolerances: f32 1e-4 (CUDA-core f32 in the kernels, TF32 off in the plain
@@ -289,6 +307,7 @@ import select
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -300,6 +319,15 @@ CSRC = "gpumounter_tpu_torch/torchcheck/csrc"
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def thread_names(threads) -> dict[str, int]:
+    """Threads counted by name, each run of digits read as N."""
+    counts: dict[str, int] = {}
+    for t in threads:
+        name = re.sub(r"\d+", "N", t.name)
+        counts[name] = counts.get(name, 0) + 1
+    return counts
 
 
 def nvidia_smi(query: str) -> str:
@@ -1809,6 +1837,66 @@ def worker_surface(card: str) -> dict:
             "ok": all(checks.values())}
 
 
+BENCH_LIMIT_S = 90.0
+# the full sizes are gpumounter_tpu_torch.bench's own run; the e2e and
+# warm-pool cycles each wait the 1.0 s scheduler delay
+BENCH_SIZES = dict(overhead=50, events_off=30, usage_off=30, topo_off=30,
+                   parking=30, single=0, multi=10, e2e=5, pool=3,
+                   contention=1, multimaster_window_s=2.5, sustained=550,
+                   sustained_2k=0)
+BENCH_CHILD = (
+    "import json\n"
+    "from gpumounter_tpu_torch import bench\n"
+    "result, p50s = bench.run_control_plane(bench.Sizes(**{sizes!r}))\n"
+    "print(json.dumps({{'result': result, 'main_bars': {{\n"
+    "    name: held for name, held, _ in bench.bars(result, p50s)}}}}))\n")
+
+
+def control_plane_bench(card: str) -> dict:
+    """The port's control-plane bench at trimmed sizes
+    (``bench.run_control_plane``), in its own interpreter, so that the
+    earlier phases' attaches in the process registry are not in its
+    readings: host-CPU figures on fixture GPUs. The
+    ``measure_*`` functions' own selftests are the checks (a failed one
+    fails the child), with a pool hit on every warm cycle, no LIST on the
+    warm path, finite latencies and the phase under 90 s. The bars of the
+    bench's ``main`` are reported, not held."""
+    # what the earlier phases left running here: the threads alive, and
+    # this process's CPU time over 2 s in which it does nothing itself
+    alive = thread_names(t for t in threading.enumerate()
+                         if t is not threading.current_thread())
+    cpu0 = time.process_time()
+    time.sleep(2.0)
+    idle_cpu_share = (time.process_time() - cpu0) / 2.0
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", BENCH_CHILD.format(sizes=BENCH_SIZES)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    phase_s = time.perf_counter() - t0
+    parent = {"threads_alive": alive, "idle_cpu_share": idle_cpu_share}
+    if proc.returncode != 0:
+        return {"rc": proc.returncode, "phase_s": phase_s, "parent": parent,
+                "error": proc.stderr[-2000:], "ok": False}
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    result = child["result"]
+    latencies = [v for k, v in result.items()
+                 if k.endswith("_s") and isinstance(v, float)]
+    checks = {
+        "pool_hit_every_cycle": (result["pool_hits"] == BENCH_SIZES["pool"]
+                                 and result["pool_misses"] == 0),
+        "no_list_on_the_warm_path": result[
+            "apiserver_round_trips_per_attach"].get("LIST/pods", 0) == 0,
+        "latencies_finite": all(math.isfinite(v) and v >= 0
+                                for v in latencies),
+        "phase_under_90s": phase_s < BENCH_LIMIT_S,
+    }
+    return {"nvidia_smi": card, "sizes": BENCH_SIZES, "result": result,
+            "main_bars": child["main_bars"], "phase_s": phase_s,
+            "parent": parent,
+            "checks": checks, "ok": all(checks.values())}
+
+
 def definition_line(src: str, func: str) -> int | None:
     """The line of ``src`` (under csrc/) where device function ``func`` is
     defined: its name at the start of a line, followed by its parameters."""
@@ -1846,6 +1934,7 @@ def main() -> int:
     launches: dict[str, dict] = {}
 
     def phase(name, fn):
+        before = {t.ident for t in threading.enumerate()}
         t0 = time.perf_counter()
         try:
             report = fn()
@@ -1853,6 +1942,9 @@ def main() -> int:
             traceback.print_exc()
             report = {"ok": False, "error": traceback.format_exc()[-2000:]}
         report["seconds"] = time.perf_counter() - t0
+        # threads a phase leaves running in this process
+        report["threads_left"] = thread_names(
+            t for t in threading.enumerate() if t.ident not in before)
         if not report.get("ok"):
             failed.append(name)
             error = str(report.get("error", "")).strip().splitlines()
@@ -2033,6 +2125,7 @@ def main() -> int:
     phase("operator", lambda: operator(card))
     phase("chaos", lambda: worker_chaos(card))
     phase("worker_surface", lambda: worker_surface(card))
+    phase("control_plane_bench", lambda: control_plane_bench(card))
 
     fwd = ("flash_fwd.cu", "flash_fwd_wgmma_kernel")
     dq = ("flash_bwd.cu", "flash_bwd_dq_wgmma_kernel")

@@ -122,8 +122,8 @@ class FakeKubeletServer:
         os.makedirs(os.path.dirname(self.socket_path), exist_ok=True)
         if os.path.exists(self.socket_path):
             os.unlink(self.socket_path)
-        self._server = grpc.server(
-            concurrent.futures.ThreadPoolExecutor(max_workers=2))
+        self._executor = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+        self._server = grpc.server(self._executor)
         handlers = [self._v1alpha1_handler(grpc)]
         if self.serve_v1:
             handlers.append(self._v1_handler(grpc))
@@ -138,6 +138,8 @@ class FakeKubeletServer:
         if self._server is not None:
             self._server.stop(grace=0).wait()
             self._server = None
+            # gRPC does not own its executor: end its idle threads too
+            self._executor.shutdown(wait=False)
         if os.path.exists(self.socket_path):
             os.unlink(self.socket_path)
 
@@ -145,6 +147,8 @@ class FakeKubeletServer:
         if self._server is not None:
             self._server.stop(grace=0)
             self._server = None
+            # gRPC does not own its executor: end its idle threads too
+            self._executor.shutdown(wait=False)
         if os.path.exists(self.socket_path):
             os.unlink(self.socket_path)
         if self._tmpdir is not None:

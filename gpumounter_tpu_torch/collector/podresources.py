@@ -295,13 +295,16 @@ class FakePodResourcesClient(PodResourcesClient):
         if self.faults is not None:
             self.faults.fire("LIST", "podresources")
         self.list_calls += 1
+        # the scheduler's threads assign while kubelet handlers list: walk
+        # copies (one list() of a dict is atomic under the GIL), or a List
+        # under load fails with "dictionary changed size during iteration"
         return PodResourcesListing([
             PodResources(pod, ns, [
                 ContainerResources(cname, [
                     ContainerDevices(resource, list(ids))
-                    for resource, ids in resources.items()])
-                for cname, resources in containers.items()])
-            for (ns, pod), containers in self.assignments.items()])
+                    for resource, ids in list(resources.items())])
+                for cname, resources in list(containers.items())])
+            for (ns, pod), containers in list(self.assignments.items())])
 
     def allocatable_gpu_ids(self, resource_name: str) -> set[str] | None:
         if self.allocatable is None:

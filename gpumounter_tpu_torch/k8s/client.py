@@ -798,6 +798,7 @@ class FakeKubeClient(KubeClient):
         self._cm_rv = 0
         self.cm_calls = 0
         self._events: list[tuple[str, objects.Pod]] = []
+        self._watches_ended = False
         self.on_create: list[Callable[[objects.Pod], None]] = []
         self.on_delete: list[Callable[[objects.Pod], None]] = []
         self.created: list[objects.Pod] = []
@@ -838,6 +839,14 @@ class FakeKubeClient(KubeClient):
             event = "MODIFIED" if key in self._pods else "ADDED"
             self._pods[key] = pod
             self._record(event, pod)
+
+    def end_watches(self) -> None:
+        """End every watch stream at its next wait, as an apiserver that
+        shuts down does: a consumer's thread leaves its stream at once
+        instead of at the end of its chunk."""
+        with self._lock:
+            self._watches_ended = True
+            self._lock.notify_all()
 
     def put_node(self, node: dict[str, Any]) -> None:
         with self._lock:
@@ -1146,6 +1155,8 @@ class FakeKubeClient(KubeClient):
             self._fault("WATCH", "pods")
             with self._lock:
                 while cursor >= len(self._events):
+                    if self._watches_ended:
+                        return
                     remaining = deadline - time.monotonic()
                     if remaining <= 0 or not self._lock.wait(
                             timeout=min(remaining, 0.5)):

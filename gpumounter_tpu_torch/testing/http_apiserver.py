@@ -197,6 +197,10 @@ class HttpApiserver:
         self.base = f"http://{address}:{self.server.server_port}"
 
     def close(self) -> None:
+        # end the watch streams it serves, as an apiserver that shuts down
+        # does: their request threads and their clients' informers leave
+        # now, not when the chunk ends
+        self.kube.end_watches()
         self.server.shutdown()
         self.server.server_close()      # release the listening socket
 

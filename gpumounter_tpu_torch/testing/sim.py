@@ -486,6 +486,9 @@ class WorkerRig:
         if self.agent is not None:
             self.agent.stop()
         if self.informer is not None:
+            # the informer's thread waits in a watch until its chunk ends,
+            # past stop()'s join: end the fake's streams first
+            self.sim.kube.end_watches()
             self.informer.stop()
         self.sim.close()
 
@@ -560,7 +563,11 @@ class LiveStack:
     def close(self) -> None:
         self.http_server.shutdown()
         self.health_server.shutdown()
+        self.health_server.server_close()
         self.grpc_server.stop(grace=0)
+        # gRPC does not own the executor it was given: its idle threads
+        # would outlive the server
+        self.grpc_server.executor.shutdown(wait=False)
         self.rig.close()
 
 
@@ -726,6 +733,7 @@ class MultiMasterStack:
             self.dead.add(i)
         for server in self.grpc_servers:
             server.stop(grace=0)
+            server.executor.shutdown(wait=False)
         for rig in self.rigs:
             rig.close()
 

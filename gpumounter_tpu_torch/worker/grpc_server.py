@@ -266,6 +266,7 @@ def build_server(service: GPUMountService,
     # introspection handle for tests and /drainz-adjacent tooling; None
     # under the legacy pool (so its absence IS the off-path pin)
     server.parking_executor = (executor if mode == "parking" else None)
+    server.executor = executor
     handler = grpc.method_handlers_generic_handler(SERVICE_NAME, {
         "AddGPU": grpc.unary_unary_rpc_method_handler(
             _add_handler(service),

@@ -376,3 +376,38 @@ def test_collector_over_real_socket_with_allocatable(gpu_host):  # noqa: F811
             DeviceState.ALLOCATED
         assert REGISTRY.chips.value(state="free") == 2
         assert REGISTRY.chips.value(state="allocated") == 1
+
+
+def test_fake_listing_survives_concurrent_assignment():
+    """The fake kubelet's table is assigned by the scheduler's threads while
+    handlers list it; a List must never fail on the table changing under it
+    (under a 550-client wave it answered UNKNOWN, "dictionary changed size
+    during iteration", and the attach failed INTERNAL). Port only: the
+    control plane's fake keeps the race (ROADMAP Queue 3)."""
+    import sys
+    import threading
+
+    state = FakePodResourcesClient()
+    for i in range(400):
+        state.assign("default", f"p{i}", [fake_uuid(i)])
+    stop = threading.Event()
+
+    def churn():
+        i = 400
+        while not stop.is_set():
+            state.assign("default", f"p{i}", [fake_uuid(i)])
+            state.unassign("default", f"p{i - 400}")
+            i += 1
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    thread = threading.Thread(target=churn, daemon=True)
+    thread.start()
+    try:
+        for _ in range(200):
+            listing = state._list_pods_once()
+            assert 399 <= len(listing.pod_resources) <= 401
+    finally:
+        stop.set()
+        thread.join()
+        sys.setswitchinterval(interval)

@@ -227,7 +227,7 @@ def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
     worlds: tests/test_torch_parallel.py, test_torch_moe_pipeline.py)."""
     import torch
 
-    from gpumounter_tpu_torch import entry
+    from gpumounter_tpu_torch import bench, entry
     from gpumounter_tpu_torch.torchcheck import dist, model, moe, pipeline
     from gpumounter_tpu_torch.torchcheck import elastic, federation, perf
     from gpumounter_tpu_torch.torchcheck import probe
@@ -255,6 +255,7 @@ def test_parallel_entry_points_raise_without_a_gpu(monkeypatch):
         "measure_roofline": lambda: perf.measure_roofline(),
         "validate_training_timed": lambda: probe.validate_training(
             timed_steps=2),
+        "bench_main": lambda: bench.main([]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
