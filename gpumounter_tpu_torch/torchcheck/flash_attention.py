@@ -29,6 +29,7 @@ import torch
 
 from gpumounter_tpu_torch.torchcheck import kernels
 from gpumounter_tpu_torch.torchcheck.ring_attention import NEG_INF
+from gpumounter_tpu_torch.utils.trace import region
 
 TILE_Q = 128       # the sequence-length multiple every path takes
 
@@ -262,28 +263,30 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        b, t, h, _ = q.shape
-        qh, kh, vh = _to_bhd(q), _to_bhd(k), _to_bhd(v)
-        pv, m, l = flash_block(qh, kh, vh, 0, 0, tile_q=FWD_TILE_Q,
-                               k_block=FWD_K_BLOCK)
-        out = _from_bhd(pv / l.transpose(1, 2), b, h).to(q.dtype)
-        lse = (m + torch.log(l)).reshape(b, h, t)
-        # the [BH, T, D] copies are what the backward kernels read; the
-        # [B, T, H, D] views die with the projection output
-        ctx.save_for_backward(qh, kh, vh, out, lse)
-        return out
+        with region("attn.core"):
+            b, t, h, _ = q.shape
+            qh, kh, vh = _to_bhd(q), _to_bhd(k), _to_bhd(v)
+            pv, m, l = flash_block(qh, kh, vh, 0, 0, tile_q=FWD_TILE_Q,
+                                   k_block=FWD_K_BLOCK)
+            out = _from_bhd(pv / l.transpose(1, 2), b, h).to(q.dtype)
+            lse = (m + torch.log(l)).reshape(b, h, t)
+            # the [BH, T, D] copies are what the backward kernels read; the
+            # [B, T, H, D] views die with the projection output
+            ctx.save_for_backward(qh, kh, vh, out, lse)
+            return out
 
     @staticmethod
     def backward(ctx, do):
-        qh, kh, vh, out, lse = ctx.saved_tensors
-        b, t, h, _ = out.shape
-        drow = softmax_jacobian_diag(do, out)               # [B, H, T]
-        dq, dk, dv = flash_backward_fused(
-            qh, kh, vh, lse.reshape(b * h, 1, t),
-            drow.reshape(b * h, 1, t).contiguous(), _to_bhd(do))
-        return (_from_bhd(dq, b, h).to(out.dtype),
-                _from_bhd(dk, b, h).to(out.dtype),
-                _from_bhd(dv, b, h).to(out.dtype))
+        with region("attn.core.bwd"):
+            qh, kh, vh, out, lse = ctx.saved_tensors
+            b, t, h, _ = out.shape
+            drow = softmax_jacobian_diag(do, out)               # [B, H, T]
+            dq, dk, dv = flash_backward_fused(
+                qh, kh, vh, lse.reshape(b * h, 1, t),
+                drow.reshape(b * h, 1, t).contiguous(), _to_bhd(do))
+            return (_from_bhd(dq, b, h).to(out.dtype),
+                    _from_bhd(dk, b, h).to(out.dtype),
+                    _from_bhd(dv, b, h).to(out.dtype))
 
 
 def make_flash_attention():

@@ -31,6 +31,7 @@ from torch import nn
 from gpumounter_tpu_torch.torchcheck import dist as dist_lib
 from gpumounter_tpu_torch.torchcheck import resolve_device
 from gpumounter_tpu_torch.torchcheck.ring_attention import full_attention
+from gpumounter_tpu_torch.utils.trace import region
 
 MESH_AXES = ("data", "seq", "model")
 
@@ -107,8 +108,9 @@ class Transformer(nn.Module):
 def _rmsnorm(x, g):
     """RMSNorm with the reference's rounding: the variance in f32, its
     rsqrt cast back to x's dtype before the product."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * g
+    with region("model.norm") as r:
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        return r.carry(x, (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * g)
 
 
 def _positions(t: int, d: int, dtype: torch.dtype,

@@ -37,6 +37,7 @@ from gpumounter_tpu_torch.torchcheck import dist as dist_lib
 from gpumounter_tpu_torch.torchcheck import model as model_lib
 from gpumounter_tpu_torch.torchcheck import resolve_device
 from gpumounter_tpu_torch.torchcheck.model import ModelConfig
+from gpumounter_tpu_torch.utils.trace import region
 
 
 @dataclasses.dataclass
@@ -48,11 +49,11 @@ class TrainState:
 
 def cross_entropy(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token CE in f32 (stable in bf16 models)."""
-    logits = logits[:, :-1].float()
-    targets = tokens[:, 1:]
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])
-    return nll.mean()
+    with region("train.loss") as r:
+        targets = tokens[:, 1:]
+        logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])
+        return r.carry(logits, nll.mean())
 
 
 def make_optimizer(params, lr: float = 3e-4) -> torch.optim.Optimizer:
@@ -71,15 +72,16 @@ def sharded_cross_entropy(logits: torch.Tensor, tokens: torch.Tensor,
     position predicts nothing."""
     seq = mesh.get_group("seq")
     n_seq = dist_lib.axis_size(mesh, "seq")
-    nxt = dist_lib.permute([tokens[:, :1]], seq, -1)[0]
-    targets = torch.cat([tokens[:, 1:], nxt], dim=1)
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    if dist_lib.axis_index(mesh, "seq") == n_seq - 1:
-        nll = nll[:, :-1]
-    count = (tokens.shape[0] * dist_lib.axis_size(mesh, "data")
-             * (tokens.shape[1] * n_seq - 1))
-    return nll.sum(), count
+    with region("train.loss") as r:
+        nxt = dist_lib.permute([tokens[:, :1]], seq, -1)[0]
+        targets = torch.cat([tokens[:, 1:], nxt], dim=1)
+        logp = F.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        if dist_lib.axis_index(mesh, "seq") == n_seq - 1:
+            nll = nll[:, :-1]
+        count = (tokens.shape[0] * dist_lib.axis_size(mesh, "data")
+                 * (tokens.shape[1] * n_seq - 1))
+        return r.carry(logits, nll.sum()), count
 
 
 def _sum_over(tensors: list[torch.Tensor], groups) -> None:
@@ -163,29 +165,40 @@ def make_train_step(cfg: ModelConfig, mesh=None,
     holds its parameter shards (:func:`init_state`); the attention is
     ``attn_impl`` over ``seq`` and the loss is the global mean on every
     rank. The returned loss is detached; reading it synchronises with the
-    device."""
+    device.
+
+    Under a profiler the step holds the ranges ``train.step`` (the whole
+    step), ``train.forward`` (the model and the loss) and
+    ``train.backward`` (the backward call; the autograd engine runs a CUDA
+    backward on a thread of its own, which holds the ``.bwd`` ranges);
+    the optimizer's is PyTorch's own ``Optimizer.step#AdamW.step``."""
     attn = model_lib.make_attention(mesh, cfg, impl=attn_impl)
     groups = (() if mesh is None else
               tuple(mesh.get_group(a) for a in ("data", "seq")))
 
     def step(state: TrainState, tokens: torch.Tensor):
-        state.optimizer.zero_grad(set_to_none=True)
-        logits = model_lib.forward(state.model, tokens, cfg, attn_fn=attn,
-                                   mesh=mesh)
-        if mesh is None:
-            loss = cross_entropy(logits, tokens)
-            loss.backward()
-        else:
-            nll_sum, count = sharded_cross_entropy(logits, tokens, mesh)
-            (nll_sum / count).backward()
-            params = list(state.model.parameters())
-            _sum_over([p.grad for p in params], groups)
-            loss = nll_sum.detach().clone()
-            _sum_over([loss], groups)
-            loss = loss / count
-        state.optimizer.step()
-        state.step += 1
-        return state, loss.detach()
+        with region("train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            with region("train.forward"):
+                logits = model_lib.forward(state.model, tokens, cfg,
+                                           attn_fn=attn, mesh=mesh)
+                if mesh is None:
+                    loss = objective = cross_entropy(logits, tokens)
+                else:
+                    nll_sum, count = sharded_cross_entropy(logits, tokens,
+                                                           mesh)
+                    objective = nll_sum / count
+            with region("train.backward"):
+                objective.backward()
+            if mesh is not None:
+                params = list(state.model.parameters())
+                _sum_over([p.grad for p in params], groups)
+                loss = nll_sum.detach().clone()
+                _sum_over([loss], groups)
+                loss = loss / count
+            state.optimizer.step()
+            state.step += 1
+            return state, loss.detach()
 
     return step
 

@@ -29,6 +29,17 @@ first-class observable:
 
 Spans survive failures: a trace finished after an exception still records
 the phases that ran, which is exactly when the breakdown matters most.
+
+The module has a second sink, for the in-pod training step: :func:`region`
+opens a ``torch.profiler`` range (``record_function``) while a profiler
+records, so the step's layers (``train.step``, ``train.forward``,
+``train.loss``, ``train.backward``, ``model.norm``, ``attn.core``) stand on
+the device trace's clock beside the kernels they launch. A region never
+joins a request's span tree, and with no profiler recording it opens
+nothing and hooks nothing into the autograd graph. :meth:`Region.carry`
+carries a region into the backward as a ``<name>.bwd`` range on the
+thread that runs it. The module imports no torch: a process that never
+imported it has no profiler recording.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import logging
+import sys
 import threading
 import time
 
@@ -147,6 +159,66 @@ def k8s_call(verb: str, resource: str):
     finally:
         REGISTRY.k8s_latency.observe(time.monotonic() - t0,
                                      verb=verb, resource=resource)
+
+
+class Region:
+    """A profiler range of the training step, as :func:`region` opens it.
+
+    :meth:`carry` holds the region's backward in a ``<name>.bwd`` range, on
+    the thread that runs it, through two gradient hooks: nothing joins the
+    autograd graph and no gradient changes. A region not recording
+    carries nothing."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str | None):
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "Region":
+        if self.name is not None:
+            self._open(self.name)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+    def carry(self, x, y):
+        """Return ``y``, the region's output, after marking the region's
+        backward: ``<name>.bwd`` opens when the gradient of ``y`` is
+        complete and closes when that of ``x``, its input, is."""
+        if self.name is not None and x.requires_grad and y.requires_grad:
+            y.register_hook(self._open_backward)
+            x.register_hook(self._close_backward)
+        return y
+
+    def _open(self, name: str) -> None:
+        self._range = sys.modules["torch"].autograd.profiler.record_function(
+            name)
+        self._range.__enter__()
+
+    def _open_backward(self, grad) -> None:
+        self._open(self.name + ".bwd")
+
+    def _close_backward(self, grad) -> None:
+        self.__exit__()
+
+
+# The region a step gets while no profiler records: it opens and marks
+# nothing (``name`` None), and is shared, since nothing changes it.
+_OFF = Region(None)
+
+
+def region(name: str) -> Region:
+    """A context manager that holds a ``torch.profiler`` range named
+    ``name`` over its block while a profiler records in this thread, and
+    does nothing otherwise (one check, no range, no hook)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return Region(name)
 
 
 class Trace:

@@ -7,7 +7,9 @@ metric family and event it names must exist in ``gpumounter_tpu_torch/``;
 its links and ``path:line`` cites must resolve; a term that means
 something only on a TPU may stand only in a sentence that names the
 control plane's chapter or calls the name kept; a paragraph that takes a
-number from ``PERF.md`` names the card and its power limit. Every section
+number from ``PERF.md`` names the card and its power limit; each span of
+the training step it names (a backticked ``train.*``, ``model.*`` or
+``attn.*`` name of lowercase words) is one the port opens. Every section
 of the control plane's chapter is linked from its GPU chapter (a GPU
 section, or one line on why it has no GPU meaning), and the FAQ answers
 each of the control plane's questions.
@@ -122,6 +124,38 @@ def port_families() -> frozenset:
     from gpumounter_tpu_torch.utils.metrics import REGISTRY
     return frozenset(re.findall(r"^# TYPE (\S+)", REGISTRY.render_text(),
                                 re.M))
+
+
+@functools.lru_cache(maxsize=None)
+def port_step_spans() -> frozenset:
+    """The profiler ranges the port's training step opens: the name of
+    every ``with region(name)`` block, and ``<name>.bwd`` where the block
+    carries its region into the backward (``r.carry(...)`` on its handle
+    ``r``)."""
+    out = set()
+    for tree in _trees().values():
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.With):
+                continue
+            for item in node.items:
+                call = item.context_expr
+                if not (isinstance(call, ast.Call) and call.args
+                        and getattr(call.func, "id", getattr(
+                            call.func, "attr", None)) == "region"
+                        and isinstance(call.args[0], ast.Constant)):
+                    continue
+                name = call.args[0].value
+                out.add(name)
+                var = item.optional_vars
+                if isinstance(var, ast.Name) and any(
+                        isinstance(n, ast.Call)
+                        and isinstance(n.func, ast.Attribute)
+                        and n.func.attr == "carry"
+                        and isinstance(n.func.value, ast.Name)
+                        and n.func.value.id == var.id
+                        for stmt in node.body for n in ast.walk(stmt)):
+                    out.add(name + ".bwd")
+    return frozenset(out)
 
 
 def _values(node: ast.AST, module_strings: set[str]) -> set[str]:
@@ -484,10 +518,27 @@ def check_perf_numbers(text: str, base: str) -> list[str]:
     return faults
 
 
+def check_step_spans(text: str, base: str) -> list[str]:
+    """A backticked name of lowercase words under one of the heads of the
+    port's step spans (``train``, ``model``, ``attn``) is a span name,
+    unless its last word is a file's extension (``model.py``)."""
+    spans = port_step_spans()
+    heads = "|".join(sorted({s.split(".")[0] for s in spans}))
+    pattern = re.compile(rf"(?:{heads})(?:\.[a-z]+)+")
+    prose, _, _ = _split(text)
+    faults = []
+    for token in sorted(set(_spans(prose))):
+        token = token.strip()
+        if pattern.fullmatch(token) and token not in spans \
+                and token.rsplit(".", 1)[1] not in CITE_EXTS.split("|"):
+            faults.append(f"{token}: not a span the port's step opens")
+    return faults
+
+
 RULES = {"subcommands": check_subcommands, "routes": check_routes,
          "env": check_env, "metrics": check_metrics, "events": check_events,
          "links": check_links, "tpu_terms": check_tpu_terms,
-         "perf_numbers": check_perf_numbers}
+         "perf_numbers": check_perf_numbers, "step_spans": check_step_spans}
 
 
 def _chapter(name: str) -> str:
@@ -589,6 +640,8 @@ PLANTED = {
     "tpu_busy": ("tpu_terms", "Detach says 409 TPUBusy."),
     "perf_without_card": ("perf_numbers",
                           "An attach took 32.236 ms (`PERF.md` §5)."),
+    "step_span": ("step_spans",
+                  "The optimizer's range is `train.optimizer`."),
 }
 
 
@@ -608,6 +661,8 @@ def test_a_planted_fault_is_rejected(case):
                   "name only in [its chapter](../QuickStart.md)."),
     ("perf_numbers", "32.236 ms on an NVIDIA H100 80GB HBM3 at 700.00 W "
                      "(`PERF.md` §5)."),
+    ("step_spans", "`model.norm` opens in `model.py`, `model.norm.bwd` "
+                   "on the backward's thread."),
 ])
 def test_what_the_port_has_passes(rule, text):
     assert not RULES[rule](text, GPU_GUIDE)
