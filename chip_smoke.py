@@ -17,6 +17,14 @@ Phases, each printing one JSON line on stdout:
      steps give the kernels (the forward and the backward pair at each),
      with each kernel's time, its bound, the
      plain version's time and a PyTorch library call's as a yardstick;
+     and the RMSNorm kernels at the 6.9B cells' shape ([8192, 4096] bf16):
+     y against the plain version (bitwise in at least 99.9% of the rows,
+     the rest one rounding step of the rsqrt away), dx and dg against the
+     float64 derivative (no further than the plain autograd path, within
+     1e-2) and the plain twin of the backward, two backward passes
+     bitwise equal, each kernel's time beside its byte bound, the plain
+     versions' and ``torch.nn.functional.rms_norm``'s (never called by the
+     port) as the yardstick;
   3. probe — run_probe on the card (collectives are degenerate on 1 GPU);
   4. flagship — the full-width train step (mxu_config, b8 t1024 bf16,
      flash attention): loss finite and decreasing, step time, MFU, the
@@ -651,6 +659,87 @@ def parity_main_path(fa, kernels, rates) -> tuple[dict, dict]:
                                     "long_context", 2, t, skip, gen, rates)}
     return ({"checks": checks.results, "library_fwd_bwd_ms": library,
              "kernels": rows, "ok": checks.ok}, rows)
+
+
+def norm_kernels(kernels, model_lib, rates, rows: int = 8192,
+                 d: int = 4096) -> tuple[dict, dict]:
+    """The RMSNorm kernels at the 6.9B cells' shape ([rows, d] bf16), held
+    against the plain versions and the float64 derivative, and timed
+    beside their byte bounds (x and y; x, dy and dx; the gain and the f32
+    rsqrt once), the plain versions and ``F.rms_norm``. Returns (phase
+    report, per-kernel numbers for the kernels line)."""
+    import torch.nn.functional as F
+    checks = Checks()
+    gen = torch.Generator("cuda").manual_seed(4)
+    dtype, es = torch.bfloat16, 2
+    x = _rand((rows, d), dtype, gen)
+    g = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    dy = _rand((rows, d), dtype, gen)
+    shape = {"path": "norm", "shape": [rows, d], "dtype": "bfloat16"}
+
+    y, rstd = kernels.rmsnorm_fwd(x, g)
+    want = model_lib._rmsnorm_plain(x, g)
+    plain_rstd = torch.rsqrt(x.float().square().mean(-1) + 1e-6)
+    steps = (rstd.to(dtype).view(torch.int16).int()
+             - plain_rstd.to(dtype).view(torch.int16).int()).abs()
+    fwd_err = max_abs(y, want)
+    other_rows = float(1 - (y == want).all(-1).float().mean())
+    checks.add("fwd_rows_not_bitwise", other_rows, 1e-3)
+    checks.add("fwd_rsqrt_steps", float(steps.max()), 1)
+    checks.add("fwd_y_from_its_rsqrt", max_abs(
+        y, (x * rstd.to(dtype)[:, None]) * g), 0.0)
+
+    dx, dg = kernels.rmsnorm_bwd(x, g, rstd, dy)
+    again = kernels.rmsnorm_bwd(x, g, rstd, dy)
+    checks.add("bwd_bitwise_twice", max(max_abs(dx, again[0]),
+                                        max_abs(dg, again[1])), 0.0)
+    twin = model_lib._rmsnorm_bwd_plain(x, g, rstd, dy)
+    xt, gt = (t.double().requires_grad_(True) for t in (x, g))
+    (xt * torch.rsqrt(xt.square().mean(-1, keepdim=True) + 1e-6)
+     * gt).backward(dy.double())
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    model_lib._rmsnorm_plain(xl, gl).backward(dy)
+    errors = {}
+    for name, got, plain, truth, same in (
+            ("dx", dx, xl.grad, xt.grad, twin[0]),
+            ("dg", dg, gl.grad, gt.grad, twin[1])):
+        errors[name] = {"kernel": rel_fro(got.double(), truth),
+                        "plain_autograd": rel_fro(plain.double(), truth),
+                        "twin": rel_fro(got, same)}
+        checks.add(f"bwd_{name}_f64_rel_fro", errors[name]["kernel"],
+                   min(errors[name]["plain_autograd"], 1e-2))
+        checks.add(f"bwd_{name}_twin_rel_fro", errors[name]["twin"], 1e-2)
+    bwd_err = max_abs(dx, xl.grad)
+    del again, twin, xt, gt, xl, gl, want, plain_rstd
+
+    row_bytes = rows * d * es
+    small = d * es + rows * 4                 # the gain and the f32 rsqrt
+    rows_out = {}
+    xr = x.detach().requires_grad_(True)
+    gr = g.detach().requires_grad_(True)
+    lib_y = F.rms_norm(xr, (d,), gr, eps=1e-6)
+    plain_y = model_lib._rmsnorm_plain(xr, gr)
+    rows_out["rmsnorm_fwd"] = {
+        **shape, "max_abs_err": fwd_err,
+        "ms": cuda_ms(lambda: kernels.rmsnorm_fwd(x, g), reps=20),
+        "plain_ms": cuda_ms(lambda: model_lib._rmsnorm_plain(x, g)),
+        "library_ms": cuda_ms(lambda: F.rms_norm(x, (d,), g, eps=1e-6)),
+        **bound(4 * rows * d, 2 * row_bytes + small, rates)}
+    rows_out["rmsnorm_bwd"] = {
+        **shape, "max_abs_err": bwd_err,
+        "rel_fro_err": errors,
+        "ms": cuda_ms(lambda: kernels.rmsnorm_bwd(x, g, rstd, dy), reps=20),
+        "plain_ms": cuda_ms(lambda: model_lib._rmsnorm_bwd_plain(
+            x, g, rstd, dy)),
+        "plain_autograd_ms": cuda_ms(lambda: torch.autograd.grad(
+            plain_y, (xr, gr), dy, retain_graph=True)),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(
+            lib_y, (xr, gr), dy, retain_graph=True)),
+        **bound(8 * rows * d, 3 * row_bytes + small + d * es, rates)}
+    del x, g, dy, y, rstd, dx, dg, xr, gr, lib_y, plain_y
+    torch.cuda.empty_cache()
+    return ({"checks": checks.results, "errors": errors,
+             "kernels": rows_out, "ok": checks.ok}, rows_out)
 
 
 def ring_replay(fa, kernels, ra, rates) -> tuple[dict, dict, dict]:
@@ -1920,6 +2009,7 @@ def main() -> int:
     from gpumounter_tpu_torch.torchcheck import dist as dist_lib
     from gpumounter_tpu_torch.torchcheck import flash_attention as fa
     from gpumounter_tpu_torch.torchcheck import kernels
+    from gpumounter_tpu_torch.torchcheck import model as model_lib
     from gpumounter_tpu_torch.torchcheck import perf, probe
     from gpumounter_tpu_torch.torchcheck import ring_attention as ra
 
@@ -1977,8 +2067,11 @@ def main() -> int:
         main_path, rows = parity_main_path(
             fa, kernels, tuple(r * 1e12 for r in rates))
         kernel_rows.update(rows)
-        return {"small": small, "main_path": main_path,
-                "ok": small["ok"] and main_path["ok"]}
+        norm, rows = norm_kernels(kernels, model_lib,
+                                  tuple(r * 1e12 for r in rates))
+        kernel_rows.update(rows)
+        return {"small": small, "main_path": main_path, "norm": norm,
+                "ok": small["ok"] and main_path["ok"] and norm["ok"]}
 
     def probe_phase():
         # run_probe pins CUDA_VISIBLE_DEVICES (for this process's children);
@@ -2145,6 +2238,10 @@ def main() -> int:
          "bwd_dkdv_long_context", "long_context", "flash_bwd_dkdv"),
         ("flash_fwd (whole-K, ring offsets)", fwd, 60, "fwd_whole_k_ring",
          "parallel", "flash_fwd_whole_k"),
+        ("rmsnorm_fwd", ("rmsnorm.cu", "rmsnorm_fwd_kernel"), None,
+         "rmsnorm_fwd", "flagship", "rmsnorm_fwd"),
+        ("rmsnorm_bwd + rmsnorm_dg", ("rmsnorm.cu", "rmsnorm_bwd_kernel"),
+         None, "rmsnorm_bwd", "flagship", "rmsnorm_bwd"),
     )
     line = []
     for name, (src, func), pallas_line, row_key, path, counter in entries:
@@ -2156,7 +2253,8 @@ def main() -> int:
         line.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
             "kernel": func, "source_line": definition_line(src, func),
-            "replaces": f"{PALLAS}:{pallas_line}", "launches": count,
+            "replaces": pallas_line and f"{PALLAS}:{pallas_line}",
+            "launches": count,
             "path": path,
             **{key: row.get(key) for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -11,10 +11,11 @@ Each wrapper checks device, dtype, contiguity and shape and raises on what
 its kernel does not take, allocates the outputs with ``torch.empty``,
 launches on PyTorch's current stream and raises if the launch returned a
 CUDA error. A wrapper adds one to its entry of :data:`LAUNCHES` for every
-launch, and nowhere else, so a run can show that its path went through the
-kernels. The wrappers take CUDA tensors only: the plain PyTorch version of
-each kernel, for CPU tensors, lives beside its caller in
-:mod:`.flash_attention`.
+launch (``rmsnorm_bwd`` one for its two kernels), and nowhere else, so a
+run can show that its path went through the kernels. The wrappers take
+CUDA tensors only: the plain PyTorch version of each kernel, for CPU
+tensors, lives beside its caller, in :mod:`.flash_attention` for the
+attention kernels and in :mod:`.model` for the RMSNorm kernels.
 """
 
 from __future__ import annotations
@@ -33,18 +34,21 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 HEADERS = ("flash_common.cuh", "hopper_common.cuh")
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "rmsnorm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 900
 
-# Launches per kernel (and per contract of flash_fwd) since the last reset.
+# Launches per kernel (and per contract of flash_fwd) since the last reset;
+# one rmsnorm_bwd is its two kernels, the rows' and the gain's.
 LAUNCHES: dict[str, int] = {"flash_fwd_whole_k": 0, "flash_fwd_kblocked": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+                            "flash_bwd_dq": 0, "flash_bwd_dkdv": 0,
+                            "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}   # csrc DType enum
 _HEAD_DIMS = (64, 128)
 SEQ_MULTIPLE = 128
+NORM_MULTIPLE, NORM_MAX_D = 8, 16384    # the RMSNorm kernels' widths
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -55,6 +59,14 @@ _SIGNATURES = {
     "flash_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     # q, k, v, do, lse, drow, dk, dv, bh, t, d, scale, dtype, stream
     "flash_bwd_dkdv": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    # x, g, y, rstd, rows, d, dtype, stream
+    "rmsnorm_fwd": [_P] * 4 + [_I] * 3 + [_P],
+    # rows, d, dtype (no launch: the backward's grid)
+    "rmsnorm_bwd_grid": [_I] * 3,
+    # x, g, rstd, dy, dx, dg_partial, rows, d, grid, dtype, stream
+    "rmsnorm_bwd": [_P] * 6 + [_I] * 4 + [_P],
+    # dg_partial, dg, grid, d, dtype, stream
+    "rmsnorm_dg": [_P] * 2 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -264,3 +276,67 @@ def flash_bwd_dkdv(q, k, v, do, lse, drow, scale: float):
             dv.data_ptr(), bh, t, d, float(scale), _DTYPE_CODE[q.dtype])
     LAUNCHES[name] += 1
     return dk, dv
+
+
+def _norm_dims(name: str, x: torch.Tensor) -> tuple[int, int]:
+    """(rows, d) of x [..., d], refused where the RMSNorm kernels do not
+    take its dtype, width or row count."""
+    d = x.shape[-1] if x.dim() else 0
+    rows = x.numel() // d if d else 0
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtype {x.dtype} not supported "
+                         "(bfloat16 or float32)")
+    if not (0 < d <= NORM_MAX_D and d % NORM_MULTIPLE == 0):
+        raise ValueError(f"{name}: width {d} is not a multiple of "
+                         f"{NORM_MULTIPLE} up to {NORM_MAX_D}")
+    if rows < 1:
+        raise ValueError(f"{name}: no rows in shape {tuple(x.shape)}")
+    return _int32(name, "rows", rows), d
+
+
+def rmsnorm_fwd(x: torch.Tensor, g: torch.Tensor):
+    """RMSNorm of x [..., d] with gain g [d]: (y like x, rstd [rows] f32,
+    each row's rsqrt(mean(x^2) + 1e-6)), y rounded at the plain version's
+    two points (``model._rmsnorm_plain``)."""
+    name = "rmsnorm_fwd"
+    rows, d = _norm_dims(name, x)
+    device = _check(name, {"x": x, "g": g}, {"x": tuple(x.shape), "g": (d,)},
+                    {"x": x.dtype, "g": x.dtype})
+    y = torch.empty(x.shape, dtype=x.dtype, device=device)
+    rstd = torch.empty(rows, dtype=torch.float32, device=device)
+    _launch(name, device, x.data_ptr(), g.data_ptr(), y.data_ptr(),
+            rstd.data_ptr(), rows, d, _DTYPE_CODE[x.dtype])
+    LAUNCHES[name] += 1
+    return y, rstd
+
+
+def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, rstd: torch.Tensor,
+                dy: torch.Tensor):
+    """(dx like x, dg like g) of :func:`rmsnorm_fwd`'s y from dy like x and
+    the forward's ``rstd``: the rows' kernel on a persistent grid, then the
+    grid's partial gain gradients summed in a fixed order
+    (``model._rmsnorm_bwd_plain`` is its arithmetic in plain PyTorch)."""
+    name = "rmsnorm_bwd"
+    rows, d = _norm_dims(name, x)
+    device = _check(
+        name, {"x": x, "g": g, "rstd": rstd, "dy": dy},
+        {"x": tuple(x.shape), "g": (d,), "rstd": (rows,),
+         "dy": tuple(x.shape)},
+        {"x": x.dtype, "g": x.dtype, "rstd": torch.float32, "dy": x.dtype})
+    code = _DTYPE_CODE[x.dtype]
+    build()
+    with torch.cuda.device(device):
+        grid = _funcs["rmsnorm_bwd_grid"](rows, d, code)
+    if grid < 1:
+        raise RuntimeError(f"{name}: no grid for rows {rows}, width {d} "
+                           f"(CUDA error {-grid})")
+    dx = torch.empty(x.shape, dtype=x.dtype, device=device)
+    partial = torch.empty((grid, d), dtype=torch.float32, device=device)
+    dg = torch.empty(d, dtype=g.dtype, device=device)
+    _launch(name, device, x.data_ptr(), g.data_ptr(), rstd.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), partial.data_ptr(), rows, d, grid,
+            code)
+    _launch("rmsnorm_dg", device, partial.data_ptr(), dg.data_ptr(), grid, d,
+            code)
+    LAUNCHES[name] += 1
+    return dx, dg

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gpumounter_tpu_torch.torchcheck import dist as dist_lib
-from gpumounter_tpu_torch.torchcheck import resolve_device
+from gpumounter_tpu_torch.torchcheck import kernels, resolve_device
 from gpumounter_tpu_torch.torchcheck.ring_attention import full_attention
 from gpumounter_tpu_torch.utils.trace import region
 
@@ -106,11 +106,54 @@ class Transformer(nn.Module):
 
 
 def _rmsnorm(x, g):
+    """RMSNorm over the last dim: the kernels of ``csrc/rmsnorm.cu`` for a
+    CUDA ``x``, :func:`_rmsnorm_plain` for a CPU one."""
+    with region("model.norm") as r:
+        y = _RMSNormFn.apply(x, g) if x.is_cuda else _rmsnorm_plain(x, g)
+        return r.carry(x, y)
+
+
+def _rmsnorm_plain(x, g):
     """RMSNorm with the reference's rounding: the variance in f32, its
     rsqrt cast back to x's dtype before the product."""
-    with region("model.norm") as r:
-        var = x.float().square().mean(dim=-1, keepdim=True)
-        return r.carry(x, (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * g)
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * g
+
+
+def _rmsnorm_bwd_plain(x, g, rstd, dy):
+    """The backward kernel's arithmetic in plain PyTorch: (dx, dg) of
+    :func:`_rmsnorm_plain` from x [..., d], g [d], each row's rsqrt
+    ``rstd`` [rows] (f32, as the forward kernel saves it) and dy like x.
+    Sums in f32 (f64 for f64 inputs) and rounds each output once; the
+    direct term of dx takes the rsqrt rounded to x's dtype, as the forward
+    did, and dg sums dy times the forward's rounded x * rsqrt."""
+    d = x.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x2 = x.reshape(-1, d)
+    xf, dyf = x2.to(acc), dy.reshape(-1, d).to(acc)
+    r = rstd.reshape(-1, 1).to(acc)
+    rb = r.to(x.dtype)
+    dn = dyf * g.to(acc)
+    c = (dn * xf).sum(-1, keepdim=True)
+    dx = rb.to(acc) * dn - xf * (r * r * r * c / d)
+    dg = (dyf * (x2 * rb).to(acc)).sum(0)
+    return dx.to(x.dtype).reshape(x.shape), dg.to(g.dtype)
+
+
+class _RMSNormFn(torch.autograd.Function):
+    """RMSNorm on the card: ``kernels.rmsnorm_fwd`` and ``rmsnorm_bwd``.
+    It saves x, g and each row's f32 rsqrt, nothing else."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        y, rstd = kernels.rmsnorm_fwd(x, g)
+        ctx.save_for_backward(x, g, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g, rstd = ctx.saved_tensors
+        return kernels.rmsnorm_bwd(x, g, rstd, dy.contiguous())
 
 
 def _positions(t: int, d: int, dtype: torch.dtype,

@@ -356,3 +356,28 @@ def test_kernel_library_is_keyed_on_source_hash():
     for src, path in paths.items():
         assert path.parent == kernels.BUILD_DIR
         assert path.name.startswith(f"lib{src.split('.')[0]}-")
+
+
+def test_kernel_registry_holds_the_norm_kernels():
+    """The RMSNorm source builds as a library of its own, binds its four
+    C entries and counts its two wrappers' launches."""
+    assert "rmsnorm.cu" in kernels.SOURCES
+    assert {"rmsnorm_fwd", "rmsnorm_bwd_grid", "rmsnorm_bwd",
+            "rmsnorm_dg"} <= set(kernels._SIGNATURES)
+    assert {"rmsnorm_fwd", "rmsnorm_bwd"} <= set(kernels.LAUNCHES)
+
+
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((4, 12), torch.bfloat16, "multiple of 8"),
+    ((4, 16392), torch.bfloat16, "multiple of 8 up to 16384"),
+    ((0, 64), torch.bfloat16, "no rows"),
+    ((4, 64), torch.float64, "not supported"),
+    ((4, 64), torch.bfloat16, "CUDA tensor")])
+def test_norm_wrappers_refuse_what_the_kernels_do_not_take(shape, dtype,
+                                                            match):
+    x = torch.zeros(shape, dtype=dtype)
+    g = torch.zeros(shape[-1], dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        kernels.rmsnorm_fwd(x, g)
+    with pytest.raises(ValueError, match=match):
+        kernels.rmsnorm_bwd(x, g, torch.zeros(shape[0]), x)

@@ -8,13 +8,20 @@ file imports no JAX, so it also runs where only PyTorch is installed:
 Tolerances: f32 1e-4 (the f32 kernels use CUDA-core FMAs in full f32, TF32
 off on the plain side); bf16 1e-2 on normalised outputs and on the relative
 Frobenius error of gradients, 1e-3 on m (p is rounded to bf16 at other
-points of the online recurrence than in the whole-K plain version)."""
+points of the online recurrence than in the whole-K plain version).
+
+The RMSNorm kernels round y at the plain version's two points, so y is
+held bitwise wherever the rsqrt rounds to the same bf16 as the plain
+version's (its f32 sum of squares is taken in another order); their
+backward sums in f32 and rounds once, so it is held against the float64
+derivative: no further from it than the plain bf16 autograd path."""
 
 import pytest
 import torch
 
 from gpumounter_tpu_torch.torchcheck import flash_attention as tfa
 from gpumounter_tpu_torch.torchcheck import kernels
+from gpumounter_tpu_torch.torchcheck import model as model_lib
 from gpumounter_tpu_torch.torchcheck.ring_attention import NEG_INF
 
 
@@ -131,4 +138,108 @@ def test_kernel_launch_counters(cuda):
     tfa.make_flash_attention()(q, k, v).sum().backward()
     assert kernels.LAUNCHES == {"flash_fwd_whole_k": 1,
                                 "flash_fwd_kblocked": 0,
-                                "flash_bwd_dq": 1, "flash_bwd_dkdv": 1}
+                                "flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
+                                "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
+
+
+# (rows, d, dtype): the cells' shape; a row count no grid divides; widths
+# of one warp, of a row group of two warps and of one not a power of two
+NORM_SHAPES = [(8192, 4096, torch.bfloat16), (4097, 4096, torch.bfloat16),
+               (1000, 64, torch.bfloat16), (3000, 2048, torch.bfloat16),
+               (1531, 5120, torch.bfloat16), (2048, 4096, torch.float32),
+               (777, 2048, torch.float32)]
+
+
+def _norm_args(device, rows, d, dtype, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(rows, d, generator=g, device=device) * 2
+    gain = 1 + 0.1 * torch.randn(d, generator=g, device=device)
+    dy = torch.randn(rows, d, generator=g, device=device)
+    return x.to(dtype), gain.to(dtype), dy.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,dtype", NORM_SHAPES)
+def test_norm_fwd_matches_plain(cuda, rows, d, dtype):
+    """y is the plain version's bit for bit once the rsqrt is rounded the
+    same; that rounding differs in at most 0.1% of the rows, by one step."""
+    x, g, _ = _norm_args(cuda, rows, d, dtype, 0)
+    y, rstd = kernels.rmsnorm_fwd(x, g)
+    want = model_lib._rmsnorm_plain(x, g)
+    plain_rstd = torch.rsqrt(x.float().square().mean(-1) + 1e-6)
+    assert float(((rstd - plain_rstd).abs() / plain_rstd).max()) <= 1e-6
+    assert torch.equal(y, (x * rstd.to(dtype)[:, None]) * g)
+    if dtype == torch.float32:
+        assert float(((y - want).abs() / want.abs().clamp_min(1e-6)).max()
+                     ) <= 1e-5
+        return
+    same = (y == want).all(-1)
+    assert float(same.float().mean()) >= 0.999
+    steps = (rstd.to(dtype).view(torch.int16).int()
+             - plain_rstd.to(dtype).view(torch.int16).int()).abs()
+    assert int(steps.max()) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,dtype", NORM_SHAPES)
+def test_norm_bwd_is_nearer_the_float64_derivative_than_plain(cuda, rows, d,
+                                                               dtype):
+    """dx and dg against the float64 derivative at x's own values: in bf16
+    no further from it than the plain autograd path and within 1e-2
+    relative Frobenius; near the plain twin's arithmetic throughout."""
+    x, g, dy = _norm_args(cuda, rows, d, dtype, 1)
+    _, rstd = kernels.rmsnorm_fwd(x, g)
+    dx, dg = kernels.rmsnorm_bwd(x, g, rstd, dy)
+    assert dx.dtype == dg.dtype == dtype
+    xt, gt = (t.double().requires_grad_(True) for t in (x, g))
+    (xt * torch.rsqrt(xt.square().mean(-1, keepdim=True) + 1e-6)
+     * gt).backward(dy.double())
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    model_lib._rmsnorm_plain(xl, gl).backward(dy)
+    twin = model_lib._rmsnorm_bwd_plain(x, g, rstd, dy)
+    for got, plain, truth, same in ((dx, xl.grad, xt.grad, twin[0]),
+                                    (dg, gl.grad, gt.grad, twin[1])):
+        err = _rel_fro(got.double(), truth)
+        if dtype == torch.float32:      # both near f32 rounding
+            assert err <= 1e-5
+        else:
+            assert err <= min(_rel_fro(plain.double(), truth), 1e-2)
+        assert _rel_fro(got.float(), same.float()) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_norm_bwd_is_deterministic(cuda):
+    """The gain's partial sums meet in a fixed order, without atomics: two
+    backward passes agree bit for bit."""
+    x, g, dy = _norm_args(cuda, 8192, 4096, torch.bfloat16, 2)
+    _, rstd = kernels.rmsnorm_fwd(x, g)
+    a, b = kernels.rmsnorm_bwd(x, g, rstd, dy), kernels.rmsnorm_bwd(
+        x, g, rstd, dy)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_norm_wrappers_refuse_other_widths_and_layouts(cuda):
+    x, g, dy = _norm_args(cuda, 64, 128, torch.bfloat16, 3)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.rmsnorm_fwd(x[:, :12].contiguous(), g[:12])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.rmsnorm_fwd(x[:, ::2], g[:64])
+    _, rstd = kernels.rmsnorm_fwd(x, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.rmsnorm_bwd(x, g, rstd, dy.t().contiguous().t())
+
+
+@pytest.mark.gpu
+def test_norm_launch_counters(cuda):
+    """One forward and one backward launch a norm: a model of two layers
+    runs five norms each way; no flash launch is counted for them."""
+    cfg = model_lib.ModelConfig(vocab=64, d_model=128, n_heads=2,
+                                n_layers=2, d_ff=256, dtype=torch.bfloat16)
+    model = model_lib.Transformer(cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 128), device=cuda)
+    kernels.reset_launch_counts()
+    model(tokens).float().sum().backward()
+    assert kernels.LAUNCHES["rmsnorm_fwd"] == 5
+    assert kernels.LAUNCHES["rmsnorm_bwd"] == 5
+    assert bool(torch.isfinite(model.ln_f.g.grad).all())

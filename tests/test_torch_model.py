@@ -157,6 +157,100 @@ def test_rmsnorm_casts_rsqrt_to_input_dtype():
         atol=1e-6)
 
 
+def _norm_inputs(shape, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=gen, dtype=torch.float64) * 2
+    g = torch.randn(shape[-1], generator=gen, dtype=torch.float64)
+    dy = torch.randn(shape, generator=gen, dtype=torch.float64)
+    return x.to(dtype), g.to(dtype), dy.to(dtype)
+
+
+def _rstd(x):
+    """Each row's f32 rsqrt, as the forward kernel saves it."""
+    return torch.rsqrt(x.float().square().mean(-1) + 1e-6).reshape(-1)
+
+
+@pytest.mark.parametrize("shape", [(1, 8), (3, 5, 64), (33, 96), (4, 4096)])
+def test_plain_norm_backward_matches_autograd_in_f64(shape):
+    """The backward kernel's arithmetic, written out, is the derivative of
+    the plain norm: in f64 it matches autograd to 1e-6 relative Frobenius,
+    the f32 variance branch both take."""
+    x, g, dy = _norm_inputs(shape, torch.float64)
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    tmodel._rmsnorm_plain(xl, gl).backward(dy)
+    dx, dg = tmodel._rmsnorm_bwd_plain(x, g, _rstd(x), dy)
+    assert dx.shape == x.shape and dg.shape == g.shape
+    for got, want in ((dx, xl.grad), (dg, gl.grad)):
+        assert float((got - want).norm() / want.norm()) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", [(256, 64), (64, 1024), (16, 4096)])
+def test_plain_norm_backward_in_bf16_is_nearer_the_truth_than_autograd(
+        shape):
+    """In bf16 the kernel's arithmetic (f32 sums, each output rounded
+    once) lands no further from the f64 derivative than the plain path's
+    bf16 autograd, and within 1e-2 relative Frobenius."""
+    x, g, dy = _norm_inputs(shape, torch.bfloat16, seed=1)
+    xt, gt = (t.double().requires_grad_(True) for t in (x, g))
+    (xt * torch.rsqrt(xt.square().mean(-1, keepdim=True) + 1e-6)
+     * gt).backward(dy.double())
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    tmodel._rmsnorm_plain(xl, gl).backward(dy)
+    dx, dg = tmodel._rmsnorm_bwd_plain(x, g, _rstd(x), dy)
+    assert dx.dtype == dg.dtype == torch.bfloat16
+
+    def err(got, want):
+        return float((got.double() - want).norm() / want.norm())
+
+    assert err(dx, xt.grad) <= min(err(xl.grad, xt.grad), 1e-2)
+    assert err(dg, gt.grad) <= min(err(gl.grad, gt.grad), 1e-2)
+
+
+def test_cpu_norm_takes_the_plain_path():
+    """A CPU x runs the plain lines (the numbers the JAX parity tests
+    hold) and launches no kernel."""
+    from gpumounter_tpu_torch.torchcheck import kernels
+    x, g, dy = _norm_inputs((2, 8, 64), torch.bfloat16)
+    kernels.reset_launch_counts()
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    y = tmodel._rmsnorm(xl, gl)
+    y.backward(dy)
+    xp, gp = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    want = tmodel._rmsnorm_plain(xp, gp)
+    want.backward(dy)
+    assert torch.equal(y, want)
+    assert torch.equal(xl.grad, xp.grad) and torch.equal(gl.grad, gp.grad)
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_norm_function_wires_the_kernels_into_autograd(monkeypatch):
+    """``_RMSNormFn`` with the kernels' plain twins in their place: the
+    forward's rsqrt reaches the backward, dy arrives contiguous, and both
+    gradients are the backward's."""
+    from gpumounter_tpu_torch.torchcheck import kernels
+    seen = {}
+
+    def fwd(x, g):
+        return tmodel._rmsnorm_plain(x, g), _rstd(x)
+
+    def bwd(x, g, rstd, dy):
+        seen.update(rstd=rstd, contiguous=dy.is_contiguous())
+        return tmodel._rmsnorm_bwd_plain(x, g, rstd, dy)
+
+    monkeypatch.setattr(kernels, "rmsnorm_fwd", fwd)
+    monkeypatch.setattr(kernels, "rmsnorm_bwd", bwd)
+    x, g, dy = _norm_inputs((4, 6, 32), torch.bfloat16, seed=2)
+    wide = torch.cat([dy, dy], dim=-1)[..., ::2]     # not contiguous
+    assert not wide.is_contiguous()
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    y = tmodel._RMSNormFn.apply(xl, gl)
+    assert torch.equal(y, tmodel._rmsnorm_plain(x, g))
+    y.backward(wide)
+    assert seen["contiguous"] and torch.equal(seen["rstd"], _rstd(x))
+    dx, dg = tmodel._rmsnorm_bwd_plain(x, g, _rstd(x), wide.contiguous())
+    assert torch.equal(xl.grad, dx) and torch.equal(gl.grad, dg)
+
+
 def test_positions_match_jax():
     np.testing.assert_allclose(
         tmodel._positions(128, 64, torch.float32).numpy(),
