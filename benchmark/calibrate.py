@@ -40,8 +40,12 @@ def _patched(module, name: str, value):
 
 
 @contextlib.contextmanager
-def unchanged_state():
-    """The step computes its loss and returns the state unchanged."""
+def unchanged_state(cell):
+    """The step computes its loss and returns the state unchanged. Written
+    for the dense decoder's step alone: any other program is refused."""
+    if cell.config["program"] != "decoder_lm":
+        raise ValueError(f"unchanged_state plants a dense decoder's step; "
+                         f"program {cell.config['program']!r} has none")
     from gpumounter_tpu_torch.torchcheck import model as model_lib
     from gpumounter_tpu_torch.torchcheck import train
 
@@ -60,7 +64,7 @@ def unchanged_state():
 
 
 @contextlib.contextmanager
-def half_batch():
+def half_batch(cell):
     """The loss leaves out half of the batch (half of the rows, or of the
     positions of a single row) and takes the mean over the rest."""
     from gpumounter_tpu_torch.torchcheck import train
@@ -76,9 +80,10 @@ def half_batch():
         yield
 
 
-# The faults a one-chip training cell can have. It exchanges nothing
-# between chips, and produces no token or checkable answer of its own:
-# its outputs are the state and the loss.
+# The faults a one-chip training cell can have, each planted by
+# ``with FAULTS[name](cell):``. It exchanges nothing between chips, and
+# produces no token or checkable answer of its own: its outputs are the
+# state and the loss.
 FAULTS = {"unchanged_state": unchanged_state, "half_batch": half_batch}
 
 
@@ -104,13 +109,14 @@ def calibrate(cell, seeds, control_seeds=(), fault_seeds=(), device=None,
     records = []
     for seed in sorted(set(seeds) | set(control_seeds) | set(fault_seeds)):
         pool = inputs.token_pool(cell.traffic,
-                                 inputs.dims(cell.config).vocab, seed, device)
+                                 cell.program.dims(cell.config).vocab, seed,
+                                 device)
         sides = {}
         if seed in seeds:
             sides["program"] = program(cell, seed, pool, device)
         for name, fault in FAULTS.items():
             if seed in fault_seeds:
-                with fault():
+                with fault(cell):
                     sides[name] = program(cell, seed, pool, device)
         t0 = time.perf_counter()
         ref = run.reference_readings(cell, seed, pool, device)

@@ -1,6 +1,8 @@
-"""The work a training step needs, counted from its shapes, and the
-published peaks it is held against. Frozen here so that a metric reads
-the same work whatever implements it.
+"""The work a training step needs, as each program counts it from its
+shapes (``step_counts`` of ``benchmark/programs/<program>.py``), the keys
+every count gives, and the published peaks it is held against. The
+counts sit under the benchmark's own files, so that a metric reads the
+same work whatever implements it.
 
 Operations are 2 per multiply-add. A GEMM's backward is twice its
 forward. Attention counts only the causal (query, key) pairs, the
@@ -14,33 +16,30 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-from benchmark.inputs import Dims
-
 PEAKS = Path(__file__).resolve().parent / "peaks.json"
 
 
 def causal_pairs(seq: int) -> int:
     return seq * (seq + 1) // 2
 
+# What every program's ``step_counts(dims, batch, seq)`` gives, per
+# optimizer step; a program may add keys for metrics of its own.
+KEYS = {
+    "gemm_flops": "every matmul but attention's, forward and backward",
+    "attn_flops": "attention's two products, forward and backward",
+    "attn_bytes": "what the attention kernels read and write at least, "
+                  "forward and backward",
+    "model_flops": "gemm_flops + attn_flops",
+    "tokens": "tokens a step trains on",
+}
 
-def step_counts(d: Dims, batch: int, seq: int) -> dict[str, float]:
-    """Per optimizer step: ``gemm_flops`` (every matmul but attention's,
-    forward and backward), ``attn_flops`` (attention's two products,
-    forward and backward), ``attn_bytes`` (q, k, v, o, do, dq, dk and dv
-    once each in the model's dtype, and the f32 log-sum-exp, per layer),
-    ``model_flops`` (their sum of operations) and ``tokens``."""
-    dm, f, v, n_layers = d.d_model, d.d_ff, d.vocab, d.n_layers
-    tokens = batch * seq
-    per_layer = dm * 3 * dm + dm * dm + 2 * dm * f       # qkv, o, w1, w2
-    gemm_fwd = 2 * tokens * (n_layers * per_layer + dm * v)
-    attn_fwd = 4 * dm * causal_pairs(seq) * batch * n_layers
-    itemsize = d.dtype.itemsize
-    attn_bytes = n_layers * (8 * tokens * dm * itemsize
-                             + batch * d.n_heads * seq * 4)
-    return {"gemm_flops": 3.0 * gemm_fwd, "attn_flops": 3.0 * attn_fwd,
-            "attn_bytes": float(attn_bytes),
-            "model_flops": 3.0 * (gemm_fwd + attn_fwd),
-            "tokens": float(tokens)}
+
+def checked(step_counts: dict[str, float]) -> dict[str, float]:
+    """``step_counts`` if it gives every key of :data:`KEYS`."""
+    missing = sorted(set(KEYS) - set(step_counts))
+    if missing:
+        raise ValueError(f"the program's step_counts lacks {missing}")
+    return step_counts
 
 
 def peaks(device_name: str, dtype_name: str) -> dict[str, float] | None:

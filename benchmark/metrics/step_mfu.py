@@ -1,5 +1,5 @@
-"""step_mfu: the model operations of the traced steps
-(:func:`benchmark.counts.step_counts`: GEMMs and causal attention, no
+"""step_mfu: the model operations of the traced steps (``model_flops``
+of the program's ``step_counts``: GEMMs and causal attention, no
 recompute) over the traced window's time and the card's peak, in %."""
 
 

@@ -4,12 +4,12 @@
         --trace <0|1>
 
 Set-up builds one training state of the cell's configuration from the
-seed (weights made on the device, handed to the port through
-``train.state_from_tree``), the port's step
-(``train.make_train_step(cfg, attn_impl="flash")``) and a pool of token
-batches, and drives the state through its first two steps on batches 0
-and 1. Those steps warm every shape the window uses, and the program's
-readings of them are what the reference is held to (:mod:`benchmark.check`).
+seed (weights made on the device, handed to the port by the program that
+the configuration names, ``benchmark/programs/<program>.py``), the
+program's step and a pool of token batches, and drives the state through
+its first two steps on batches 0 and 1. Those steps warm every shape the
+window uses, and the program's readings of them are what the reference
+is held to (:mod:`benchmark.check`).
 
 The window then enqueues steps on the same state, cycling through the
 pool, until ``--seconds`` have passed on the host's clock, and
@@ -71,13 +71,6 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def model_config(cell: spec.Cell):
-    from gpumounter_tpu_torch.torchcheck.model import ModelConfig
-    d = inputs.dims(cell.config)
-    return ModelConfig(vocab=d.vocab, d_model=d.d_model, n_heads=d.n_heads,
-                       n_layers=d.n_layers, d_ff=d.d_ff, dtype=d.dtype)
-
-
 def _floats(value) -> list[float]:
     return [float(x) for x in (value if isinstance(value, (list, tuple))
                                else [value])]
@@ -95,22 +88,21 @@ def check_optimizer(training: dict, optimizer) -> None:
                              f"{stated}; the port's optimizer holds {held}")
 
 
+def make_params(cell: spec.Cell, seed: int, device) -> dict:
+    """The seed's weights, leaf by leaf as the cell's program lays them
+    out."""
+    d = cell.program.dims(cell.config)
+    return inputs.make_params(cell.program.groups(d), d.dtype, seed, device)
+
+
 def build_program(cell: spec.Cell, seed: int, device):
-    """The port's training state holding the seed's weights (zero
-    moments, step 0) and its flash-attention step."""
-    import torch
-    from gpumounter_tpu_torch.torchcheck import train
-    cfg = model_config(cell)
-    params = inputs.make_params(inputs.dims(cell.config), seed, device)
-    zeros = {n: torch.zeros((), dtype=p.dtype, device=device).expand(p.shape)
-             for n, p in params.items()}
-    tree = {"params": params, "step": 0,
-            "opt": {n: {"exp_avg": zeros[n], "exp_avg_sq": zeros[n],
-                        "step": 0} for n in params}}
-    state = train.state_from_tree(cfg, tree, device,
-                                  lr=float(cell.config["training"]["lr"]))
+    """The cell's program: its training state holding the seed's weights
+    (zero moments, step 0) and its step."""
+    d = cell.program.dims(cell.config)
+    state, step = cell.program.build(cell.config, d,
+                                     make_params(cell, seed, device), device)
     check_optimizer(cell.config["training"], state.optimizer)
-    return state, train.make_train_step(cfg, attn_impl="flash")
+    return state, step
 
 
 def program_readings(cell: spec.Cell, seed: int, state, step, pool,
@@ -131,12 +123,14 @@ def program_readings(cell: spec.Cell, seed: int, state, step, pool,
             grads = torch.stack([
                 state.optimizer.state[p]["exp_avg"].float().norm()
                 for _, p in named]) / (1 - beta1)
-    d = inputs.dims(cell.config)
+    d = cell.program.dims(cell.config)
+    groups = cell.program.groups(d)
     change, made = [], {}
     for name, p in named:
-        tag = inputs.group_of(name)
+        tag = inputs.group_of(groups, name)
         if tag not in made:
-            made = {tag: inputs.make_group(d, seed, tag, device)}
+            made = {tag: inputs.make_group(groups, d.dtype, seed, tag,
+                                           device)}
         change.append((p.detach().float() - made[tag][name].float()).norm())
     del made
     names = [n for n, _ in named]
@@ -149,7 +143,7 @@ def program_readings(cell: spec.Cell, seed: int, state, step, pool,
 def reference_readings(cell: spec.Cell, seed: int, pool, device,
                        precision: str = "fp32") -> dict:
     reference = spec.reference_module(cell.config)
-    params = inputs.make_params(inputs.dims(cell.config), seed, device)
+    params = make_params(cell, seed, device)
     return reference.train(cell.config, params,
                            [pool[i] for i in range(SETUP_STEPS)], precision)
 
@@ -203,8 +197,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         mark("kernels")
     state, step = build_program(cell, seed, device)
     mark("state")
-    pool = inputs.token_pool(cell.traffic, inputs.dims(cell.config).vocab,
-                             seed, device)
+    d = cell.program.dims(cell.config)
+    pool = inputs.token_pool(cell.traffic, d.vocab, seed, device)
     mark("tokens")
     state, prog = program_readings(cell, seed, state, step, pool, device)
     mark("setup")
@@ -227,12 +221,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                     max_steps=int(cell.traffic["trace_steps"]))
         path = out_dir(root) / f"trace.{cell.name}.json"
         prof.export_chrome_trace(str(path))
-        d = inputs.dims(cell.config)
         peaks = (counts.peaks(torch.cuda.get_device_name(device),
                               cell.config["torch_dtype"])
                  if device.type == "cuda" else None)
-        tr = trace_lib.load(path, len(losses), counts.step_counts(
-            d, cell.traffic["batch"], cell.traffic["seq"]), peaks)
+        tr = trace_lib.load(path, len(losses), counts.checked(
+            cell.program.step_counts(d, cell.traffic["batch"],
+                                     cell.traffic["seq"])), peaks)
     else:
         state, losses, window_s = _window(state, step, pool, seconds, device)
     steps = len(losses)

@@ -5,7 +5,16 @@ one per-layer metric is a file of its own, found by its name:
 
 - ``benchmark/configs/<config>.json``: the model's sizes as they are run
   (the published ``config.json`` keys, with every change listed under
-  ``reduced``), and the name of its plain reference under ``reference``;
+  ``reduced``), the name of its program under ``program`` and of its
+  plain reference under ``reference``;
+- ``benchmark/programs/<program>.py``: the port's side of a cell, the
+  only code that knows the model's leaves and sizes. The harness calls
+  its ``dims(config)`` (at least ``vocab`` and ``dtype``),
+  ``groups(dims)`` (the weights' leaves, :mod:`benchmark.inputs`),
+  ``build(config, dims, params, device)`` (``(state, step)``: a state with
+  ``.model`` and ``.optimizer``, and ``step(state, tokens)`` giving
+  ``(state, loss)``) and ``step_counts(dims, batch, seq)`` (the keys of
+  :data:`benchmark.counts.KEYS`);
 - ``benchmark/reference/<reference>.py``: that plain reference;
 - ``benchmark/traffic/<traffic>.json``: the parameters the one generator
   in :mod:`benchmark.inputs` reads;
@@ -22,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from types import ModuleType
 
@@ -36,6 +46,7 @@ class Cell:
     chips: int
     config_name: str
     config: dict
+    program: ModuleType
     traffic_name: str
     traffic: dict
     limits: dict
@@ -71,6 +82,7 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     return Cell(
         name=name, chips=int(entry["chips"]),
         config_name=entry["config"], config=config,
+        program=program_module(config, root),
         traffic_name=entry["traffic"],
         traffic=_read_json(base / "traffic" / f"{entry['traffic']}.json"),
         limits=_read_json(base / "limits" / f"{name}.json"),
@@ -88,6 +100,9 @@ def _module(kind: str, name: str, root: Path) -> ModuleType:
     key = f"{PACKAGE}.{kind}.{name.replace('.', '_').replace('-', '_')}"
     spec = importlib.util.spec_from_file_location(key, path)
     module = importlib.util.module_from_spec(spec)
+    # registered, as an import would be, so that a dataclass in it can
+    # resolve its own annotations
+    sys.modules[key] = module
     spec.loader.exec_module(module)
     return module
 
@@ -95,6 +110,14 @@ def _module(kind: str, name: str, root: Path) -> ModuleType:
 def metric_reader(name: str, root: Path = ROOT):
     """The ``read(trace)`` function of per-layer metric ``name``."""
     return _module("metrics", name, root).read
+
+
+def program_module(config: dict, root: Path = ROOT) -> ModuleType:
+    """The program the configuration names."""
+    if "program" not in config:
+        raise KeyError("the configuration names no \"program\" (a file "
+                       f"under {PACKAGE}/programs/)")
+    return _module("programs", config["program"], root)
 
 
 def reference_module(config: dict, root: Path = ROOT) -> ModuleType:

@@ -42,6 +42,17 @@ def test_the_float8_control_is_not_correct(cell):
 
 @pytest.mark.parametrize("fault", sorted(calibrate.FAULTS))
 def test_a_fault_under_the_run_is_not_correct(cell, fault):
-    with calibrate.FAULTS[fault]():
+    with calibrate.FAULTS[fault](cell):
         result = _run(cell, 2**31 + 13)
     assert not result["correct"], result["checks"]
+
+
+def test_the_unchanged_state_fault_refuses_another_program(tmp_path):
+    """It plants the dense decoder's step, so it is no fault of another
+    program's: it raises rather than run the dense model in its place."""
+    cell = spec.load_cell(TINY, tiny_root(tmp_path))
+    other = spec.Cell(**{**cell.__dict__,
+                         "config": dict(cell.config, program="other")})
+    with pytest.raises(ValueError, match="other"):
+        with calibrate.unchanged_state(other):
+            pass

@@ -6,8 +6,9 @@ import json
 import re
 
 import pytest
+import torch
 
-from benchmark import check, counts, inputs, spec
+from benchmark import check, counts, run, spec
 from benchmark import trace as trace_lib
 from benchmark.tests.tiny import TINY, tiny_root
 
@@ -58,7 +59,7 @@ def test_names_units_and_entries():
 @pytest.mark.parametrize("cell", CELLS)
 def test_every_cell_loads_by_name(cell):
     loaded = spec.load_cell(cell)
-    d = inputs.dims(loaded.config)
+    d = loaded.program.dims(loaded.config)
     assert d.d_model % d.n_heads == 0 and d.head_dim in (64, 128)
     assert loaded.traffic["seq"] % 128 == 0
     compared = set(check.NAMES) & set(loaded.limits)
@@ -107,10 +108,84 @@ def test_a_cell_and_a_metric_added_as_files_are_found(tmp_path):
     assert "tokens_per_step" in [m["name"] for m in cell.per_layer]
     assert "tokens_per_step" not in [
         m["name"] for m in spec.load_cell(CELLS[0], root).per_layer]
-    d = inputs.dims(cell.config)
+    d = cell.program.dims(cell.config)
     tr = trace_lib.Trace([], {}, [], [], (0.0, 1e6), 1,
-                         counts.step_counts(d, 2, 256), None)
+                         cell.program.step_counts(d, 2, 256), None)
     assert spec.metric_reader("tokens_per_step", root)(tr) == 512.0
+
+
+# A program of another architecture's place, as a later PR would add it:
+# the dense decoder underneath, every call the harness makes recorded.
+RECORDING = '''
+from pathlib import Path
+
+from benchmark import spec
+
+BASE = spec.program_module({"program": "decoder_lm"},
+                           Path(__file__).resolve().parents[2])
+CALLS = []
+
+
+def dims(config):
+    CALLS.append("dims")
+    return BASE.dims(config)
+
+
+def groups(d):
+    CALLS.append("groups")
+    return BASE.groups(d)
+
+
+def build(config, d, params, device):
+    CALLS.append("build")
+    state, step = BASE.build(config, d, params, device)
+
+    def recorded(state, tokens):
+        CALLS.append("step")
+        return step(state, tokens)
+    return state, recorded
+
+
+def step_counts(d, batch, seq):
+    CALLS.append("step_counts")
+    return BASE.step_counts(d, batch, seq)
+'''
+
+
+def _files(base):
+    return {p.relative_to(base): p.read_bytes() for p in base.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_program_added_as_files_is_the_one_the_run_drives(tmp_path):
+    """A module under programs/ and a configuration that names it: the
+    run goes through it alone (setup's two steps, the traced window's),
+    and no file the benchmark had changes."""
+    root = tiny_root(tmp_path, program="recording")
+    (root / spec.PACKAGE / "programs" / "recording.py").write_text(RECORDING)
+    cell = spec.load_cell(TINY, root)
+    assert cell.program.__file__ == str(
+        root / spec.PACKAGE / "programs" / "recording.py")
+    result, _ = run.run_cell(cell, 2**31 + 21, 0.2, True,
+                             torch.device("cpu"), root)
+    calls = cell.program.CALLS
+    assert result["correct"], result["checks"]
+    assert calls.count("step") == result["attempted"]
+    assert {"dims", "groups", "build", "step_counts"} <= set(calls)
+    assert calls.index("build") < calls.index("step")
+    have = _files(spec.ROOT / spec.PACKAGE)
+    copied = _files(root / spec.PACKAGE)
+    assert all(copied[p] == have[p] for p in copied if p in have)
+
+
+def test_a_configuration_without_a_program_is_refused(tmp_path):
+    root = tiny_root(tmp_path)
+    path = root / spec.PACKAGE / "configs" / "tiny.json"
+    body = json.loads(path.read_text())
+    del body["program"]
+    path.write_text(json.dumps(body))
+    with pytest.raises(KeyError, match="program"):
+        spec.load_cell(TINY, root)
 
 
 def test_readers_find_nothing_in_an_empty_trace():

@@ -14,10 +14,11 @@ TINY = "tiny.b2-t256"
 
 def tiny_root(tmp: Path, like: str = "pythia-6.9b.pretrain-t2048",
               dtype: str = "bfloat16", batch: int = 2, seq: int = 256,
-              **sizes) -> Path:
+              program: str | None = None, **sizes) -> Path:
     """``tmp`` holding BENCHMARK.json and benchmark/ with the cell ``tiny``:
     ``like``'s configuration at small sizes, its limits, and a Zipf
-    traffic of ``batch`` x ``seq``."""
+    traffic of ``batch`` x ``seq``. ``program`` names the configuration's
+    program in place of ``like``'s."""
     shutil.copytree(spec.ROOT / spec.PACKAGE, tmp / spec.PACKAGE,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
@@ -29,6 +30,8 @@ def tiny_root(tmp: Path, like: str = "pythia-6.9b.pretrain-t2048",
                   num_hidden_layers=2, intermediate_size=256,
                   vocab_size=512, torch_dtype=dtype)
     config.update(sizes)
+    if program is not None:
+        config["program"] = program
     base = tmp / spec.PACKAGE
     (base / "configs" / "tiny.json").write_text(json.dumps(config))
     (base / "traffic" / "tiny.json").write_text(json.dumps(

@@ -11,7 +11,8 @@ synchronisations, inside the benchmark's own ``benchmark.window`` range.
   own, such as ``Optimizer.step#AdamW.step``), and ``cpu_ops``: the
   operators the host ran;
 - the window's bounds, the number of steps, the work of one step
-  (:func:`benchmark.counts.step_counts`) and the card's peaks.
+  (the program's ``step_counts``, keys in :data:`benchmark.counts.KEYS`)
+  and the card's peaks.
 
 A metric reader (``benchmark/metrics/<name>.py``) takes a Trace and
 returns a number, or None where it finds nothing to read.

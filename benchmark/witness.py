@@ -60,9 +60,10 @@ def load_parts(config: str, traffic: str, root=spec.ROOT) -> spec.Cell:
     """A cell of ``config`` under ``traffic`` found by their file names,
     whether or not ``BENCHMARK.json`` holds it."""
     base = root / spec.PACKAGE
+    body = json.loads((base / "configs" / f"{config}.json").read_text())
     return spec.Cell(
         name=f"{config}.{traffic}", chips=1, config_name=config,
-        config=json.loads((base / "configs" / f"{config}.json").read_text()),
+        config=body, program=spec.program_module(body, root),
         traffic_name=traffic,
         traffic=json.loads((base / "traffic" / f"{traffic}.json").read_text()),
         limits={}, end_to_end=(), per_layer=())
@@ -74,16 +75,16 @@ def _gains(change_norms: dict[str, float]) -> dict[str, float]:
 
 
 def witness(cell: spec.Cell, seed: int, device) -> dict:
-    d = inputs.dims(cell.config)
-    pool = inputs.token_pool(cell.traffic, d.vocab, seed, device)
+    vocab = cell.program.dims(cell.config).vocab
+    pool = inputs.token_pool(cell.traffic, vocab, seed, device)
     state, step = run.build_program(cell, seed, device)
     catch = CatchLookupGrad(state.model.embed)
+    shape = tuple(state.model.embed.shape)
     with catch:
         state, prog = run.program_readings(cell, seed, state, step, pool,
                                            device)
     del state, step
-    ids, dx = catch.index.reshape(-1), catch.grad.reshape(-1, d.d_model)
-    shape = (d.vocab, d.d_model)
+    ids, dx = catch.index.reshape(-1), catch.grad.reshape(-1, shape[1])
     embed = {
         "program": prog["grad_norms"]["embed"],
         "index_put_bf16": float(torch.zeros(shape, dtype=dx.dtype,
@@ -91,7 +92,7 @@ def witness(cell: spec.Cell, seed: int, device) -> dict:
                                 .index_put_((ids,), dx, accumulate=True)
                                 .float().norm()),
         "embedding_backward": float(torch.ops.aten.embedding_dense_backward(
-            dx, ids, d.vocab, -1, False).float().norm()),
+            dx, ids, vocab, -1, False).float().norm()),
         "index_add_f32": float(torch.zeros(shape, device=device)
                                .index_add_(0, ids, dx.float()).norm())}
     top = int(torch.bincount(ids).max())
@@ -102,7 +103,7 @@ def witness(cell: spec.Cell, seed: int, device) -> dict:
     embed["reference"] = ref["grad_norms"]["embed"]
     master = dict(cell.config, torch_dtype="float32")
     ref32 = spec.reference_module(master).train(
-        master, inputs.make_params(d, seed, device),
+        master, run.make_params(cell, seed, device),
         [pool[i] for i in range(run.SETUP_STEPS)])
     calibrate._free(device)
     return {"seed": seed, "most_frequent_id_count": top,
